@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``isokann_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernel from ``isokann_tpu_torch/csrc`` with
+nvcc, holds it against its plain PyTorch version on the card, drives the
+alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline: randx0(100),
+propagate(nk=5) of 512 padded walkers x 100 LangevinMiddle steps,
+all-pairs features, 100 Koopman iterations of the pairnet chi model with
+AdamRegularized, then chis/koopman/rates) through the port's entry points,
+and times the kernel.  Each phase prints one line; any failed check exits
+non-zero.  The last two lines are a JSON list of the kernels (launches on
+the main path, error against the plain version, times, bound) and
+``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2 without
+one.  Imports nothing of JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+LIMIT_S = 180          # watchdog: the whole run, kernel build included
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def watchdog():
+    def fire():
+        print(f"chip_smoke: watchdog fired after {LIMIT_S} s", flush=True)
+        os._exit(1)
+    t = threading.Timer(LIMIT_S, fire)
+    t.daemon = True
+    t.start()
+
+
+def phase(name, t0, msg=""):
+    print(f"phase {name}: ok {time.perf_counter() - t0:.2f}s {msg}",
+          flush=True)
+
+
+def require(cond, what):
+    if not cond:
+        raise AssertionError(f"check failed: {what}")
+
+
+def cuda_ms(fn, reps=1):
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events,
+    after one warm-up call."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    watchdog()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import langevin_kernel as LK
+    from isokann_tpu_torch.md.integrators import KB
+    dev = torch.device("cuda")
+
+    # ---- 1. device -------------------------------------------------------
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    stamp = f"[{smi}]"
+    phase("device", t0, f"{kind}, torch {torch.__version__}, "
+                        f"CUDA {torch.version.cuda}")
+
+    # ---- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    LK.langevin_middle.lib()
+    LK.forces.lib()
+    log = [p for p in os.listdir(os.path.join(ROOT, "build", "torch_kernels"))
+           if p.endswith(".log")]
+    for p in log:
+        with open(os.path.join(ROOT, "build", "torch_kernels", p)) as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip())
+    phase("build", t0, f"nvcc {LK.langevin_middle.build_seconds:.2f}s")
+
+    # ---- 3. kernel against plain ------------------------------------------
+    t0 = time.perf_counter()
+    sim = itt.MDSimulation(device="cuda")
+    plan = sim.plan
+    rng = np.random.default_rng(0)
+    B = 512
+    x = (sim.coords[None, :] + torch.as_tensor(
+        rng.normal(scale=0.01, size=(B, sim.dim)), dtype=torch.float32,
+        device=dev)).contiguous()
+    gen = itt.make_generator(1)
+    v0 = sim.random_velocities(gen, x.shape)
+    # the main path launches the kernel at B=1 (randx0) and B=512
+    # (propagate); B=37 also covers a partly filled last block
+    ferr = lm_err = 0.0
+    for b in (B, 37, 1):
+        xb, vb = x[:b].contiguous(), v0[:b].contiguous()
+        f_k = LK.forces(plan, xb)
+        f_p = LK.forces_plain(plan, xb)
+        fe = float((f_k - f_p).abs().max() / f_p.abs().max())
+        xk, vk = LK.langevin_middle(plan, xb, vb, 10, gen, noise=False)
+        xp, vp = LK.langevin_middle_plain(plan, xb, vb, 10, noise=False)
+        xrel = float((xk - xp).abs().max() / xp.abs().max())
+        vrel = float((vk - vp).abs().max() / vp.abs().max())
+        ae = max(float((xk - xp).abs().max()), float((vk - vp).abs().max()))
+        print(f"  B={b}: forces max rel err {fe:.3e} (tol 1e-5); noiseless "
+              f"LangevinMiddle x10 steps: rel x {xrel:.3e} (tol 1e-5), rel v "
+              f"{vrel:.3e} (tol 1e-4), max abs err {ae:.3e}")
+        require(fe < 1e-5, f"forces vs plain at B={b}")
+        require(xrel < 1e-5 and vrel < 1e-4,
+                f"noiseless LangevinMiddle vs plain at B={b}")
+        ferr, lm_err = max(ferr, fe), max(lm_err, ae)
+
+    BT, NT = 4096, 2000
+    xT = sim.coords[None, :].expand(BT, sim.dim).contiguous()
+    vT = sim.random_velocities(itt.make_generator(2), xT.shape)
+    xo, vo = LK.langevin_middle(plan, xT, vT, NT, itt.make_generator(3))
+    require(bool(torch.isfinite(xo).all()), "finite temperature run")
+    m3 = sim.masses3
+    temp = float((m3 * vo * vo).sum(dim=1).mean() / (sim.dim * KB))
+    print(f"  kinetic temperature B={BT} after {NT} steps: {temp:.2f} K "
+          f"(target 310 K, tol 1%)")
+    require(abs(temp - 310.0) / 310.0 < 0.01, "kinetic temperature")
+
+    a1 = LK.langevin_middle(plan, x, v0, 20, itt.make_generator(7))
+    a2 = LK.langevin_middle(plan, x, v0, 20, itt.make_generator(7))
+    require(torch.equal(a1[0], a2[0]) and torch.equal(a1[1], a2[1]),
+            "same seed gives the same bits")
+    phase("kernel_vs_plain", t0, "forces, noiseless, temperature, "
+                                 "determinism")
+
+    # ---- 4. main path ------------------------------------------------------
+    t0 = time.perf_counter()
+    LK.langevin_middle.launches = 0
+    NX, NK, EPISODES = 100, 5, 100
+    sim = itt.MDSimulation(steps=100)
+    nfeat = sim.natoms * (sim.natoms - 1) // 2
+    gen = itt.make_generator(0)
+    model = sim.defaultmodel(n=nfeat, gen=gen)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    data = itt.SimulationData.from_sim(sim, nx=NX, nk=NK, gen=gen)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t1
+    params0 = {k: v.clone() for k, v in model.state_dict().items()}
+    iso = itt.Iso(data=data, model=model, opt=itt.AdamRegularized(), gen=1)
+    t1 = time.perf_counter()
+    iso.run(EPISODES)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t1
+    chi = iso.chis()
+    kchi = iso.koopman()
+    Q = iso.rates()
+    launches = LK.langevin_middle.launches
+    print(f"  datagen {t_data:.3f}s, train{EPISODES} {t_train:.3f}s, "
+          f"loss {iso.losses[0]:.4f} -> {iso.losses[-1]:.4f}, "
+          f"kernel launches {launches}, rates diag {np.diag(Q).tolist()} "
+          f"{stamp}")
+    require(launches > 0, "main path launched the LangevinMiddle kernel")
+    require(data.propcoords.shape == (NX, NK, sim.dim)
+            and bool(torch.isfinite(data.propcoords).all()), "finite bursts")
+    require(np.all(np.isfinite(iso.losses))
+            and iso.losses[-1] < iso.losses[0], "losses finite, decreasing")
+    require(chi.shape == (NX, 1) and bool(torch.isfinite(chi).all())
+            and bool(torch.isfinite(kchi).all()), "chis finite")
+    require(np.all(np.diag(Q) < 0), "rates() has a negative diagonal")
+
+    # the same training on the CPU reference path, same data and params
+    sub = itt.SimulationData.from_coords(sim, data.coords[:16],
+                                         data.propcoords[:16])
+    runs = []
+    for d in ("cuda", "cpu"):
+        m = itt.pairnet(nfeat).to(d)
+        m.load_state_dict(params0)
+        sd = itt.SimulationData(sim, sub.features.to(d),
+                                sub.propfeatures.to(d), sub.coords.to(d),
+                                sub.propcoords.to(d), sub.featurizer)
+        it = itt.Iso(data=sd, model=m, opt=itt.AdamRegularized(), gen=4)
+        runs.append(np.asarray(it.run(5).losses))
+    terr = float(np.max(np.abs(runs[0] - runs[1]) / np.abs(runs[1])))
+    print(f"  training on cuda vs cpu, 16 points x 5 iterations: max rel "
+          f"loss diff {terr:.2e} (tol 1e-4)")
+    require(terr < 1e-4, "cuda training agrees with the cpu path")
+    phase("main_path", t0, f"datagen {t_data:.3f}s train {t_train:.3f}s")
+
+    # ---- 5. kernel timing --------------------------------------------------
+    t0 = time.perf_counter()
+    v0 = sim.random_velocities(itt.make_generator(5), x.shape)
+    g6 = itt.make_generator(6)
+    ms = cuda_ms(lambda: LK.langevin_middle(plan, x, v0, 100, g6), reps=5)
+    plain_ms = cuda_ms(lambda: LK.langevin_middle_plain(plan, x, v0, 100,
+                                                        g6))
+    bms, bound_by = LK.bound_ms(plan, B, 100)
+    print(f"  langevin_middle B={B} x100 steps: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({bound_by}) {stamp}")
+    x1, v1 = x[:1].contiguous(), v0[:1].contiguous()
+    ms1 = cuda_ms(lambda: LK.langevin_middle(plan, x1, v1, 100, g6), reps=5)
+    print(f"  langevin_middle B=1 x100 steps (one randx0 lag): {ms1:.3f} ms "
+          f"{stamp}")
+    fms = cuda_ms(lambda: LK.forces(plan, x), reps=5)
+    print(f"  forces entry (parity only, not on the main path) B={B}: "
+          f"{fms:.4f} ms, max rel err {ferr:.3e} {stamp}")
+    BL, NL = 16384, 1000
+    xL = sim.coords[None, :].expand(BL, sim.dim).contiguous()
+    vL = sim.random_velocities(itt.make_generator(8), xL.shape)
+    msL = cuda_ms(lambda: LK.langevin_middle(plan, xL, vL, NL, g6))
+    bL, _ = LK.bound_ms(plan, BL, NL)
+    rate = BL * NL / (msL * 1e-3)
+    print(f"  langevin_middle B={BL} x{NL} steps: {msL:.2f} ms, "
+          f"{rate:.4g} walker-steps/s, bound {bL:.3f} ms "
+          f"({bL / msL:.2%} of it) {stamp}")
+    phase("timing", t0)
+
+    kernels = [{
+        "name": "langevin_middle", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
+        "replaces": "isokann_tpu/md/pallas_md.py:318",
+        "launches": launches, "max_abs_err": lm_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
+        "library_ms": None,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Build hand-written CUDA sources into a shared library at first use.
+
+Route: plain ``nvcc`` into a C-ABI ``.so`` loaded with ``ctypes`` (a few
+seconds per source; no PyTorch headers, no ``torch.utils.cpp_extension``).
+The library lands in ``build/torch_kernels/`` at the repository root,
+named by a hash of its sources and flags, so an edit forces a rebuild.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def load_library(name: str, source: str):
+    """Build ``csrc/<source>`` (once per content hash) and load it.
+
+    Returns ``(lib, seconds)``: the ``ctypes.CDLL`` and the seconds spent
+    in ``nvcc`` by this call (0.0 when the library was already built)."""
+    src = os.path.join(_PKG, "csrc", source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    if out in _loaded:
+        return _loaded[out], 0.0
+    seconds = 0.0
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+        with open(out + ".log", "w") as f:
+            f.write(proc.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(out)
+    _loaded[out] = lib
+    return lib, seconds

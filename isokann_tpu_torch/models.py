@@ -1,0 +1,92 @@
+"""Chi models as ``nn.Module``s; counterpart of ``isokann_tpu/models.py``.
+
+``MLP``: optional input LayerNorm (eps 1e-5, Flux semantics), dense
+layers with Glorot-uniform weights and zero biases, ``activation`` on the
+hidden layers and ``lastactivation`` on the output.  Inputs are
+(..., features), outputs (..., nout).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ._device import make_generator
+
+ACTIVATIONS = {
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+}
+
+
+class MLP(nn.Module):
+    def __init__(self, sizes: Sequence[int], activation: str = "sigmoid",
+                 lastactivation: str = "identity", layernorm: bool = False,
+                 gen=None):
+        super().__init__()
+        self.sizes = tuple(int(s) for s in sizes)
+        self.activation = activation
+        self.lastactivation = lastactivation
+        self.layernorm = bool(layernorm)
+        self.ln = nn.LayerNorm(self.sizes[0], eps=1e-5) if layernorm else None
+        self.layers = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(self.sizes[:-1], self.sizes[1:]))
+        self.reset_parameters(make_generator(gen))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator):
+        """Glorot-uniform weights (Flux's Dense default), zero biases."""
+        for layer in self.layers:
+            fan_out, fan_in = layer.weight.shape
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            w = torch.rand((fan_in, fan_out), generator=gen) * 2 - 1
+            layer.weight.copy_((w * limit).T)
+            layer.bias.zero_()
+
+    def forward(self, x):
+        act = ACTIVATIONS[self.activation]
+        lastact = ACTIVATIONS[self.lastactivation]
+        if self.ln is not None:
+            x = self.ln(x)
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            x = lastact(x) if i == len(self.layers) - 1 else act(x)
+        return x
+
+    @property
+    def inputdim(self) -> int:
+        return self.sizes[0]
+
+    @property
+    def outputdim(self) -> int:
+        return self.sizes[-1]
+
+
+def densenet(layers: Sequence[int], activation="sigmoid",
+             lastactivation="identity", layernorm=False, gen=None) -> MLP:
+    return MLP(layers, activation, lastactivation, layernorm, gen)
+
+
+def pairnet(n: int, layers: int = 3, activation="sigmoid",
+            lastactivation="identity", nout: int = 1, layernorm: bool = True,
+            gen=None) -> MLP:
+    """Default chi MLP with geometric width decay n^(l/L)."""
+    sizes = [round(n ** (l / layers)) for l in range(layers, 0, -1)] + [nout]
+    return densenet(sizes, activation, lastactivation, layernorm, gen)
+
+
+def smallnet(nin: int, nout: int = 1, activation="sigmoid",
+             lastactivation="identity", gen=None) -> MLP:
+    """3x8-unit MLP for low-dimensional inputs."""
+    return densenet([nin, 8, 8, 8, nout], activation, lastactivation, False,
+                    gen)
+
+
+def autonet(n: int, nout: int = 1, gen=None, **kwargs) -> MLP:
+    """smallnet below 16 features, pairnet from 16 up."""
+    if n < 16:
+        return smallnet(n, nout=nout, gen=gen)
+    return pairnet(n=n, nout=nout, gen=gen, **kwargs)

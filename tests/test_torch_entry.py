@@ -1,0 +1,71 @@
+"""Entry points of the port: the device rule, import isolation from JAX,
+and the MDSimulation data path at a small size on the CPU."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import isokann_tpu_torch as itt
+
+
+# small tensor ops: one intra-op thread each; several test workers
+# share the machine and oversubscribed threads slow them 50x
+torch.set_num_threads(1)
+
+
+def test_no_device_and_no_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        itt.MDSimulation()
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, imported in a fresh interpreter, pulls in
+    neither jax, optax nor the JAX package."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import isokann_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'optax', 'isokann_tpu'))\n"
+        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    root = __file__.rsplit("/tests/", 1)[0]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_propagate_and_randx0_shapes():
+    sim = itt.MDSimulation(steps=5, device="cpu")
+    gen = itt.make_generator(0)
+    xs = sim.randx0(3, gen=gen)
+    assert xs.shape == (3, 66) and bool(torch.isfinite(xs).all())
+    ys = sim.propagate(xs, 2, gen=gen)
+    assert ys.shape == (3, 2, 66) and bool(torch.isfinite(ys).all())
+    assert not torch.equal(ys[:, 0], ys[:, 1])
+    data = itt.SimulationData.from_sim(sim, nx=3, nk=2, gen=1)
+    assert data.features.shape == (3, 231)
+    assert data.propfeatures.shape == (3, 2, 231)
+
+
+def test_diverged_walkers_fall_back_to_start():
+    sim = itt.MDSimulation(steps=2, device="cpu")
+    x0 = sim.coords[None, :].repeat(2, 1)
+    x0[1, :3] = float("nan")
+    with pytest.warns(UserWarning, match="diverged"):
+        ys = sim.propagate(x0, 1, gen=0)
+    assert bool(torch.isfinite(ys[0]).all())
+    assert torch.equal(torch.isnan(ys[1]), torch.isnan(x0[1:2]))
+
+
+def test_iso_from_sim_runs():
+    sim = itt.MDSimulation(steps=5, device="cpu")
+    iso = itt.Iso(sim=sim, nx=4, nk=2, opt=itt.AdamRegularized(), gen=0)
+    iso.run(3)
+    assert len(iso.losses) == 3 and np.all(np.isfinite(iso.losses))
+    assert iso.chis().shape == (4, 1)
