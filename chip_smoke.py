@@ -3,15 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from ``isokann_tpu_torch/csrc`` with
-nvcc, holds it against its plain PyTorch version on the card, drives the
-alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline: randx0(100),
-propagate(nk=5) of 512 padded walkers x 100 LangevinMiddle steps,
-all-pairs features, 100 Koopman iterations of the pairnet chi model with
-AdamRegularized, then chis/koopman/rates) through the port's entry points,
-and times the kernel.  Each phase prints one line; any failed check exits
+Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
+nvcc (one process per source, in parallel) and holds each against its
+plain PyTorch version on the card.  Then it drives two paths through the
+port's entry points:
+
+- the alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline:
+  randx0(100), propagate(nk=5) of 512 padded walkers x 100 LangevinMiddle
+  steps, all-pairs features, 100 Koopman iterations of the pairnet chi
+  model with AdamRegularized, then chis/koopman/rates): the LangevinMiddle
+  kernel;
+- Girsanov-weighted optimal-control sampling on the chi that path
+  trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
+  ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
+  Girsanov kernel, 256 padded walkers x 100 ABOBA steps per generation.
+
+It times both kernels.  Each phase prints one line; any failed check exits
 non-zero.  The last two lines are a JSON list of the kernels (launches on
-the main path, error against the plain version, times, bound) and
+their path, error against the plain version, times, bound) and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2 without
 one.  Imports nothing of JAX.
 """
@@ -22,6 +31,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -71,6 +81,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import girsanov_kernel as GK
     from isokann_tpu_torch.md import langevin_kernel as LK
     from isokann_tpu_torch.md.integrators import KB
     dev = torch.device("cuda")
@@ -87,18 +98,26 @@ def main():
     phase("device", t0, f"{kind}, torch {torch.__version__}, "
                         f"CUDA {torch.version.cuda}")
 
-    # ---- 2. build ----------------------------------------------------------
+    # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    LK.langevin_middle.lib()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(k.lib) for k in (LK.langevin_middle,
+                                                 GK.aboba_girsanov)]:
+            job.result()
     LK.forces.lib()
-    log = [p for p in os.listdir(os.path.join(ROOT, "build", "torch_kernels"))
-           if p.endswith(".log")]
+    GK.chi_grad.lib()
+    log = sorted(p for p in os.listdir(os.path.join(ROOT, "build",
+                                                    "torch_kernels"))
+                 if p.endswith(".log"))
     for p in log:
         with open(os.path.join(ROOT, "build", "torch_kernels", p)) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
-                    print("  ptxas:", line.strip())
-    phase("build", t0, f"nvcc {LK.langevin_middle.build_seconds:.2f}s")
+                    print(f"  ptxas {p.split('-')[0]}:", line.strip())
+    phase("build", t0, f"nvcc langevin_middle "
+                       f"{LK.langevin_middle.build_seconds:.2f}s, "
+                       f"aboba_girsanov "
+                       f"{GK.aboba_girsanov.build_seconds:.2f}s (parallel)")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -232,12 +251,172 @@ def main():
           f"({bL / msL:.2%} of it) {stamp}")
     phase("timing", t0)
 
+    # ---- 6. Girsanov kernel against plain -----------------------------------
+    t0 = time.perf_counter()
+    FS, BB, QRATE, NS = 0.7, 0.4, -2.0, 10
+    gm = itt.pairnet(nfeat, gen=11).to(dev)
+    gplan = GK.GirsanovPlan.for_model(plan, gm, FS)
+    gerr = 0.0
+    for b in (512, 256, 37, 1):
+        xb = x[:b].contiguous()
+        pb = sim.random_velocities(itt.make_generator(12), xb.shape) \
+            * sim.masses3
+        f = torch.sqrt(LK.pair_delta(plan, xb.reshape(b, -1, 3))[1])
+        c_k, g_k = GK.chi_grad(gplan, gm, f)
+        c_p, g_p = GK.chi_grad_plain(gplan, gm, f)
+        crel = float((c_k - c_p).abs().max() / c_p.abs().max())
+        grel = float((g_k - g_p).abs().max() / g_p.abs().max())
+        qk, pk, lk = GK.aboba_girsanov(gplan, gm, xb, pb, NS, BB, QRATE,
+                                       NS * sim.step, gen, noise=False)
+        qp, pp, lp = GK.aboba_girsanov_plain(gplan, gm, xb, pb, NS, BB,
+                                             QRATE, NS * sim.step,
+                                             noise=False)
+        qrel = float((qk - qp).abs().max() / qp.abs().max())
+        prel = float((pk - pp).abs().max() / pp.abs().max())
+        lrel = float((lk - lp).abs().max() / lp.abs().max())
+        ae = max(float((qk - qp).abs().max()), float((pk - pp).abs().max()),
+                 float((lk - lp).abs().max()))
+        print(f"  B={b}: chi_grad vs autograd: chi rel {crel:.3e} (tol "
+              f"1e-5), dchi/df rel {grel:.3e} (tol 1e-4); noiseless "
+              f"Girsanov ABOBA x{NS} steps: rel q {qrel:.3e} (tol 1e-5), "
+              f"rel p {prel:.3e} (tol 1e-4), rel logw {lrel:.3e} (tol "
+              f"1e-4, |logw| max {float(lp.abs().max()):.3f}), max abs err "
+              f"{ae:.3e}")
+        require(crel < 1e-5 and grel < 1e-4, f"chi_grad vs autograd at B={b}")
+        require(qrel < 1e-5 and prel < 1e-4 and lrel < 1e-4,
+                f"noiseless Girsanov ABOBA vs plain at B={b}")
+        gerr = max(gerr, ae)
+
+    # martingale: E[w] = 1 under the trained chi's optimal-control bias.
+    # The 4-sigma band of a sample mean tests E[w] = 1 only while the
+    # log-weights' variance stays below ~1.  The quickstart chi is steep:
+    # at forcescale 0.5 over the 100-step lag var(logw) is ~1e3 (measured
+    # on the CPU plain path), where no sample of 16384 estimates E[w].  So
+    # the forcescale halves from 0.5 until var(logw) < 1, each run is
+    # printed, and the band is checked at the first that qualifies.
+    BM = 16384
+    xm = data.coords.repeat_interleave(-(-BM // NX), dim=0)[:BM].contiguous()
+    gm7 = itt.make_generator(13)
+    pm = sim.random_velocities(gm7, xm.shape) * sim.masses3
+    fs_m, lvar = 1.0, float("inf")
+    while lvar >= 1.0 and fs_m > 1 / 64:
+        fs_m /= 2
+        try:
+            spec_m = itt.optcontrol(iso, forcescale=fs_m).optcontrol_spec
+        except itt.DomainError:
+            spec_m = None
+        require(spec_m is not None,
+                "optcontrol on the trained chi (contracting)")
+        plan_m = GK.GirsanovPlan.for_model(plan, spec_m["model"], fs_m)
+        _, _, lw = GK.aboba_girsanov(plan_m, spec_m["model"], xm, pm, 100,
+                                     spec_m["b"], spec_m["qrate"],
+                                     spec_m["Tmax"], gm7)
+        w = torch.exp(lw.double())
+        wmean, wstd = float(w.mean()), float(w.std())
+        band = 4.0 * wstd / BM ** 0.5
+        lvar = float(lw.double().var())
+        ess = float(w.sum() ** 2 / (w * w).sum())
+        print(f"  martingale B={BM} x100 steps, forcescale {fs_m}, trained "
+              f"chi: E[w] {wmean:.5f}, std(w) {wstd:.4f}, |E[w]-1| "
+              f"{abs(wmean - 1.0):.5f} (4 std/sqrt(B) = {band:.5f}), "
+              f"var(logw) {lvar:.4f}, ESS {ess:.1f} of {BM}")
+        require(bool(torch.isfinite(w).all()), "finite Girsanov weights")
+        if fs_m == 0.5:
+            spec, mplan = spec_m, plan_m
+    require(1e-3 < lvar < 1.0, "a forcescale >= 1/64 with var(logw) < 1")
+    require(abs(wmean - 1.0) < band, "E[w] = 1 within 4 standard errors")
+
+    r1 = GK.aboba_girsanov(gplan, gm, x[:256].contiguous(),
+                           pm[:256].contiguous(), 20, BB, QRATE, 0.04,
+                           itt.make_generator(7))
+    r2 = GK.aboba_girsanov(gplan, gm, x[:256].contiguous(),
+                           pm[:256].contiguous(), 20, BB, QRATE, 0.04,
+                           itt.make_generator(7))
+    require(all(torch.equal(a, b) for a, b in zip(r1, r2)),
+            "Girsanov kernel: same seed gives the same bits")
+    phase("girsanov_vs_plain", t0, "chi_grad, noiseless, martingale, "
+                                   "determinism")
+
+    # ---- 7. Girsanov path ----------------------------------------------------
+    t0 = time.perf_counter()
+    LK.langevin_middle.launches = 0
+    GK.aboba_girsanov.launches = 0
+    t1 = time.perf_counter()
+    sim.bias = itt.optcontrol(iso, forcescale=1.0)
+    ws = sim.propagate(data.coords, NK, gen=itt.make_generator(14))
+    sim.bias = None
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    require(isinstance(ws, itt.WeightedSamples)
+            and ws.values.shape == (NX, NK, sim.dim)
+            and bool(torch.isfinite(ws.values).all())
+            and bool(torch.isfinite(ws.weights).all()),
+            "biased propagate gives finite WeightedSamples")
+    print(f"  optcontrol(iso, 1.0) + biased propagate {NX}x{NK}: "
+          f"{t_prop:.3f}s, weights [{float(ws.weights.min()):.4g}, "
+          f"{float(ws.weights.max()):.4g}], mean ESS "
+          f"{float(ws.ess().mean()):.3f} of {NK}, E[w] "
+          f"{float(ws.weights.mean()):.4f} {stamp}")
+    n_loss = len(iso.losses)
+    t1 = time.perf_counter()
+    itt.run_girsanov(iso, generations=3, iter=100, kde=50, forcescale=0.5)
+    torch.cuda.synchronize()
+    t_gir = time.perf_counter() - t1
+    g_launches = GK.aboba_girsanov.launches
+    rows = iso.girsanov_telemetry
+    for row in rows:
+        print(f"  run_girsanov {row}")
+    print(f"  run_girsanov 3 generations: {t_gir:.3f}s wall, Girsanov "
+          f"kernel launches {g_launches} (LangevinMiddle "
+          f"{LK.langevin_middle.launches}) {stamp}")
+    require(g_launches > 0, "the Girsanov path launched the Girsanov kernel")
+    require(any(r["biased"] for r in rows), "a biased generation")
+    pf = iso.data.propfeatures
+    require(isinstance(pf, itt.WeightedSamples)
+            and bool(torch.isfinite(pf.weights).all()),
+            "propfeatures are WeightedSamples with finite weights")
+    gl = np.asarray(iso.losses[n_loss:]).reshape(3, 100)
+    require(np.all(np.isfinite(gl)) and np.all(gl[:, -1] < gl[:, 0]),
+            "finite losses falling in each generation")
+    phase("girsanov_path", t0, f"propagate {t_prop:.3f}s run_girsanov "
+                               f"{t_gir:.3f}s")
+
+    # ---- 8. Girsanov kernel timing -------------------------------------------
+    t0 = time.perf_counter()
+    gtimes = {}
+    for b in (256, 512, 16384):
+        xb, pb = xm[:b].contiguous(), pm[:b].contiguous()
+        gtimes[b] = cuda_ms(lambda: GK.aboba_girsanov(
+            mplan, spec["model"], xb, pb, 100, spec["b"], spec["qrate"],
+            spec["Tmax"], gm7), reps=1 if b > 512 else 5)
+        bb, _ = GK.bound_ms(mplan, b, 100)
+        print(f"  aboba_girsanov B={b} x100 steps: {gtimes[b]:.3f} ms, "
+              f"{b * 100 / (gtimes[b] * 1e-3):.4g} walker-steps/s, bound "
+              f"{bb:.4f} ms ({bb / gtimes[b]:.2%} of it) {stamp}")
+    xb, pb = xm[:256].contiguous(), pm[:256].contiguous()
+    g_plain_ms = cuda_ms(lambda: GK.aboba_girsanov_plain(
+        mplan, spec["model"], xb, pb, 100, spec["b"], spec["qrate"],
+        spec["Tmax"], gm7))
+    g_bms, g_by = GK.bound_ms(mplan, 256, 100)
+    cg_ms = cuda_ms(lambda: GK.chi_grad(gplan, gm, f), reps=5)
+    print(f"  aboba_girsanov plain B=256 x100 steps: {g_plain_ms:.3f} ms; "
+          f"bound {g_bms:.4f} ms ({g_by}); chi_grad entry (parity only) "
+          f"B=1: {cg_ms:.4f} ms {stamp}")
+    phase("girsanov_timing", t0)
+
     kernels = [{
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
         "launches": launches, "max_abs_err": lm_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "aboba_girsanov", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/aboba_girsanov.cu",
+        "replaces": "isokann_tpu/md/pallas_md.py:558",
+        "launches": g_launches, "max_abs_err": gerr, "ms": gtimes[256],
+        "plain_ms": g_plain_ms, "bound_ms": g_bms, "bound_by": g_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

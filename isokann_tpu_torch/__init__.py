@@ -16,17 +16,21 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from ._device import make_generator, resolve_device  # noqa: E402
-from .data import SimulationData  # noqa: E402
+from .data import SimulationData, WeightedSamples  # noqa: E402
 from .features import FeaturesAll  # noqa: E402
 from .iso import Iso  # noqa: E402
+from .md.integrators import optcontrol  # noqa: E402
 from .models import MLP, autonet, pairnet  # noqa: E402
 from .optim import AdamRegularized, NesterovRegularized  # noqa: E402
 from .simulators.mdsim import MDSimulation  # noqa: E402
-from .targets import DomainError, TransformShiftscale, shiftscale  # noqa: E402
+from .targets import (DomainError, TransformShiftscale,  # noqa: E402
+                      expectation, shiftscale)
+from .workflows import run_girsanov  # noqa: E402
 
 __all__ = [
     "AdamRegularized", "DomainError", "FeaturesAll", "Iso", "MDSimulation",
     "MLP", "NesterovRegularized", "SimulationData",
-    "TransformShiftscale", "autonet", "make_generator", "pairnet",
-    "resolve_device", "shiftscale",
+    "TransformShiftscale", "WeightedSamples", "autonet", "expectation",
+    "make_generator", "optcontrol", "pairnet", "resolve_device",
+    "run_girsanov", "shiftscale",
 ]

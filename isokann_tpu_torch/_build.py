@@ -3,7 +3,8 @@
 Route: plain ``nvcc`` into a C-ABI ``.so`` loaded with ``ctypes`` (a few
 seconds per source; no PyTorch headers, no ``torch.utils.cpp_extension``).
 The library lands in ``build/torch_kernels/`` at the repository root,
-named by a hash of its sources and flags, so an edit forces a rebuild.
+named by a hash of its source, the ``csrc`` headers it includes and the
+flags, so an edit of any of them forces a rebuild.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -21,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -31,15 +34,38 @@ def _nvcc() -> str:
     return path
 
 
+def _sources(src: str) -> list:
+    """``src`` and every file it includes by ``#include "..."`` from its
+    own directory, recursively, in first-seen order."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            names = _INCLUDE.findall(f.read())
+        todo += [os.path.join(os.path.dirname(path), n.decode())
+                 for n in names]
+    return seen
+
+
+def digest(src: str) -> str:
+    """16 hex digits of the hash of the flags, ``src`` and its includes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str, source: str):
     """Build ``csrc/<source>`` (once per content hash) and load it.
 
     Returns ``(lib, seconds)``: the ``ctypes.CDLL`` and the seconds spent
     in ``nvcc`` by this call (0.0 when the library was already built)."""
     src = os.path.join(_PKG, "csrc", source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    out = os.path.join(BUILD_DIR, f"{name}-{digest(src)}.so")
     if out in _loaded:
         return _loaded[out], 0.0
     seconds = 0.0

@@ -1,9 +1,13 @@
-"""SimulationData and capacity-bucket padding; counterpart of
-``isokann_tpu/data.py`` (``from_sim``/``from_coords``) and of the
+"""SimulationData, Girsanov-weighted samples and capacity-bucket padding;
+counterpart of ``isokann_tpu/data.py`` (``WeightedSamples``, ``lastcat``,
+``SimulationData`` with its merging and KDE resampling) and of the
 ``bucket_capacity``/``_pad_rows`` helpers of ``isokann_tpu/iso.py``.
 
 Arrays are batch-leading tensors on the simulation's device:
-xs (n, d), ys (n, k, d), features (n, f) and (n, k, f).
+xs (n, d), ys (n, k, d), features (n, f) and (n, k, f); ys and their
+features may be ``WeightedSamples`` (values (n, k, ...), weights (n, k)).
+Host numpy is used only for host decisions: the byte comparison of
+``resample_kde(unique=True)``, the KDE picks and the ESS diagnostic.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ._device import make_generator
@@ -18,6 +23,61 @@ from ._device import make_generator
 
 def identity(x):
     return x
+
+
+@dataclass
+class WeightedSamples:
+    """Girsanov-reweighted Koopman samples: ``values`` (n, k, ...) and
+    their likelihood-ratio ``weights`` (n, k)."""
+
+    values: torch.Tensor
+    weights: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    def __getitem__(self, i):
+        return WeightedSamples(self.values[i], self.weights[i])
+
+    def ess(self):
+        """Per-start effective sample size (sum w)^2 / sum w^2 over the
+        walker axis, (n,) float64 numpy: k for uniform weights, -> 1 when
+        one walker dominates."""
+        w = self.weights.detach().cpu().double().numpy()
+        return (w.sum(-1) ** 2) / ((w * w).sum(-1) + 1e-300)
+
+
+def values(ys):
+    return ys.values if isinstance(ys, WeightedSamples) else ys
+
+
+def weights(ys):
+    return ys.weights if isinstance(ys, WeightedSamples) else None
+
+
+def _weights_or_ones(ys):
+    w = weights(ys)
+    if w is None:
+        v = values(ys)
+        return torch.ones(v.shape[:2], dtype=v.dtype, device=v.device)
+    return w
+
+
+def lastcat(x, y):
+    """Concatenate along the batch (leading) axis.  If either side is
+    weighted, so is the result, and unweighted rows get weight 1."""
+    if isinstance(x, WeightedSamples) or isinstance(y, WeightedSamples):
+        return WeightedSamples(
+            torch.cat([values(x), values(y)], dim=0),
+            torch.cat([_weights_or_ones(x), _weights_or_ones(y)], dim=0))
+    return torch.cat([x, y], dim=0)
+
+
+def flattenfirst(a):
+    """(n, k, ...) -> (n k, ...), of the values when weighted."""
+    a = values(a)
+    return a.reshape((-1,) + tuple(a.shape[2:]))
 
 
 def bucket_capacity(n: int) -> int:
@@ -65,14 +125,22 @@ class SimulationData:
 
     @classmethod
     def from_coords(cls, sim, xs, ys, featurizer=None, features=None):
-        """From coordinates, with optional precomputed (fxs, fys)."""
+        """From coordinates, with optional precomputed (fxs, fys).  A
+        weighted ys keeps its weights on its features."""
         if featurizer is None:
             featurizer = getattr(sim, "featurizer", None) or identity
         if features is None:
-            features = (featurizer(xs), featurizer(ys))
+            fys = featurizer(values(ys))
+            if isinstance(ys, WeightedSamples):
+                fys = WeightedSamples(fys, ys.weights)
+            features = (featurizer(xs), fys)
         fxs, fys = features
-        return cls(sim, fxs.to(torch.float32), fys.to(torch.float32), xs, ys,
-                   featurizer)
+        if isinstance(fys, WeightedSamples):
+            fys = WeightedSamples(fys.values.to(torch.float32),
+                                  fys.weights.to(torch.float32))
+        else:
+            fys = fys.to(torch.float32)
+        return cls(sim, fxs.to(torch.float32), fys, xs, ys, featurizer)
 
     @property
     def featuredim(self):
@@ -80,7 +148,7 @@ class SimulationData:
 
     @property
     def nk(self):
-        return self.propfeatures.shape[1]
+        return values(self.propfeatures).shape[1]
 
     @property
     def dim(self):
@@ -89,7 +157,76 @@ class SimulationData:
     def __len__(self):
         return self.features.shape[0]
 
+    def __getitem__(self, i):
+        if isinstance(i, int):
+            i = slice(i, i + 1)
+        return SimulationData(self.sim, self.features[i],
+                              self.propfeatures[i], self.coords[i],
+                              self.propcoords[i], self.featurizer)
+
+    # ---- merging & growth ------------------------------------------------
+
+    def merge(self, other: "SimulationData") -> "SimulationData":
+        """Both datasets in one, keeping this one's sim and featurizer;
+        ``other`` is featurized anew if its featurizer differs."""
+        if (other.featurizer is self.featurizer
+                or other.featurizer == self.featurizer):
+            f2, fy2 = other.features, other.propfeatures
+        else:
+            f2 = self.featurizer(other.coords).to(torch.float32)
+            fy2 = self.featurizer(values(other.propcoords)).to(torch.float32)
+            if isinstance(other.propcoords, WeightedSamples):
+                fy2 = WeightedSamples(fy2, other.propcoords.weights)
+        return SimulationData(
+            self.sim, lastcat(self.features, f2),
+            lastcat(self.propfeatures, fy2),
+            lastcat(self.coords, other.coords),
+            lastcat(self.propcoords, other.propcoords), self.featurizer)
+
+    def addcoords(self, coords, gen=None) -> "SimulationData":
+        """Propagate new start points under the sim (``nk`` bursts each)
+        and append them."""
+        new = SimulationData.from_sim(self.sim, xs=coords, nk=self.nk,
+                                      featurizer=self.featurizer, gen=gen)
+        return self.merge(new)
+
+    def resample_kde(self, model, n, bandwidth=0.02, unique=True, gen=None):
+        """Add ``n`` start points picked among the bursts' end points so
+        that chi over the start points approaches a uniform density
+        (``sample.resample_kde_ash``).  ``unique`` drops end points that
+        already are start points (byte comparison on the host)."""
+        from .sample import resample_kde_ash
+
+        if n == 0:
+            return self
+        ycoords = flattenfirst(self.propcoords)
+        if unique:
+            sampled = {c.tobytes() for c in self.coords.cpu().numpy()}
+            selinds = np.asarray(
+                [i for i, c in enumerate(ycoords.cpu().numpy())
+                 if c.tobytes() not in sampled], dtype=int)
+            if len(selinds) == 0:
+                return self
+        else:
+            selinds = np.arange(ycoords.shape[0])
+        sel = torch.as_tensor(selinds, device=ycoords.device)
+        with torch.no_grad():
+            chix = model(self.features)[:, 0].cpu().numpy()
+            chiy = model(flattenfirst(self.propfeatures)[sel])[:, 0]
+            chiy = chiy.cpu().numpy()
+        m1 = min(chix.min(), chiy.min())
+        m2 = max(chix.max(), chiy.max())
+        chix = (chix - m1) / (m2 - m1)
+        chiy = (chiy - m1) / (m2 - m1)
+        iy = resample_kde_ash(chix, chiy, n, bandwidth=bandwidth)
+        pick = torch.as_tensor(selinds[iy], device=ycoords.device)
+        return self.addcoords(ycoords[pick], gen=gen)
+
     def __repr__(self):
         return (f"SimulationData(sim={type(self.sim).__name__}, "
                 f"n={len(self)}, nk={self.nk}, dim={self.dim}, "
                 f"featuredim={self.featuredim})")
+
+
+def mergedata(d1: SimulationData, d2: SimulationData) -> SimulationData:
+    return d1.merge(d2)

@@ -12,11 +12,17 @@ this is an eager loop with the same semantics (``iso.py:78-156`` there):
 - full batch when the bucket fits one minibatch (no permutation);
   otherwise a random permutation of the bucket cut into minibatches, with
   the loss scaled by ``cap / n_true``;
-- every loss is the per-observation mean; a non-finite loss raises.
+- every loss is the per-observation mean; a non-finite loss raises;
+- Girsanov-weighted bursts (``WeightedSamples``) give the weighted
+  Koopman estimate sum_k w chi / k, as the reference's ``yw`` does.
+
+Adaptive sampling: ``addcoords``, ``resample_kde`` and ``run_kde``
+(``iso.py:563-619`` there).
 """
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import List
 
@@ -25,9 +31,9 @@ import scipy.linalg
 import torch
 
 from ._device import make_generator
-from .data import SimulationData, bucket_capacity, pad_rows
+from .data import SimulationData, WeightedSamples, bucket_capacity, pad_rows
 from .optim import NesterovRegularized
-from .targets import DomainError, TransformShiftscale
+from .targets import DomainError, TransformShiftscale, expectation
 
 
 class Iso:
@@ -72,7 +78,7 @@ class Iso:
     @torch.no_grad()
     def koopman(self):
         """Koopman expectation of chi over the bursts, (n, d)."""
-        return self.model(self.data.propfeatures).mean(dim=1)
+        return expectation(self.model, self.data.propfeatures)
 
     def rates(self):
         """Coarse-grained rate matrix Q with Kchi = exp(tau Q) chi."""
@@ -88,7 +94,12 @@ class Iso:
         nx = xs.shape[0]
         cap = bucket_capacity(nx)
         device = xs.device
-        xs, ys = pad_rows(xs, cap), pad_rows(ys, cap)
+        if isinstance(ys, WeightedSamples):
+            ys = WeightedSamples(pad_rows(ys.values, cap),
+                                 pad_rows(ys.weights, cap))
+        else:
+            ys = pad_rows(ys, cap)
+        xs = pad_rows(xs, cap)
         mask = torch.zeros(cap, device=device)
         mask[:nx] = 1.0
         n_true = float(nx)
@@ -98,7 +109,7 @@ class Iso:
         losses = []
         for _ in range(n):
             with torch.no_grad():
-                kchi = self.model(ys).mean(dim=1)
+                kchi = expectation(self.model, ys)
                 target = self.target.fused_target(kchi, mask, n_true)
             for _ in range(epochs):
                 losses.append(self._epoch(xs, target, mask, n_true, cap, bs,
@@ -128,6 +139,40 @@ class Iso:
         ls = [self._step(xs[idx], target[idx], mask[idx] * scale, bs)
               for idx in perm]
         return torch.stack(ls).sum() * bs / cap
+
+    # ---- adaptive sampling --------------------------------------------------
+
+    def addcoords(self, coords):
+        """Extend the data with new start points (``nk`` bursts each)."""
+        self.data = self.data.addcoords(coords, gen=self.gen)
+        return self
+
+    def resample_kde(self, ny, **kwargs):
+        """Add ``ny`` start points by KDE gap-filling in chi."""
+        self.data = self.data.resample_kde(self.model, ny, gen=self.gen,
+                                           **kwargs)
+        return self
+
+    def run_kde(self, generations=1, iter=100, cutoff=np.inf, kde=1,
+                unique=True, showprogress=False):
+        """generations x (KDE resampling -> keep the last ``cutoff`` points
+        -> ``run(iter)``)."""
+        t_kde = t_train = 0.0
+        for g in range(generations):
+            t0 = time.time()
+            self.resample_kde(kde, unique=unique)
+            t_kde += time.time() - t0
+            if len(self.data) > cutoff:
+                self.data = self.data[len(self.data) - int(cutoff):]
+            t0 = time.time()
+            self.run(iter)
+            t_train += time.time() - t0
+            if showprogress:
+                print(f"[run_kde] gen {g + 1}/{generations} "
+                      f"loss={self.losses[-1]:.4g} n={len(self.data)} "
+                      f"t_train={t_train:.1f}s t_kde={t_kde:.1f}s",
+                      flush=True)
+        return self
 
     def __repr__(self):
         s = (f"Iso(model={self.model.sizes}, "

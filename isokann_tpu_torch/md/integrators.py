@@ -1,10 +1,11 @@
 """Batched stochastic integrators in PyTorch (plain recursion).
 
-Counterpart of ``isokann_tpu/md/integrators.py``: ``maxwell_boltzmann``
-and the OpenMM LangevinMiddle scheme over any force function.  The
-production path for supported systems is the hand-written kernel in
-``langevin_kernel.py``; this recursion serves the systems it does not
-take on the CPU, and the tests.
+Counterpart of ``isokann_tpu/md/integrators.py``: ``maxwell_boltzmann``,
+the OpenMM LangevinMiddle scheme, the Girsanov-weighted ABOBA scheme
+(``aboba_girsanov``) over any force and bias function, and the
+chi-derived optimal-control bias (``optcontrol``).  The production paths
+are the hand-written kernels in ``langevin_kernel.py`` and
+``girsanov_kernel.py``; these recursions serve the CPU and the tests.
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn on the host
 from an explicit ``torch.Generator`` and moved to the walkers' device.
@@ -12,9 +13,11 @@ from an explicit ``torch.Generator`` and moved to the walkers' device.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 KB = 0.00831446261815324
@@ -54,3 +57,123 @@ def langevin_middle(force_fn: Callable, x0, v0, masses3, T, gamma, dt,
         x, v = langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
                                     gen)
     return x, v
+
+
+def constants(masses3, T, gamma, overdamped: bool):
+    """Noise amplitudes: sqrt(2 kB T / (gamma m)) (overdamped, position
+    noise) or sqrt(2 kB T gamma m) (underdamped, momentum noise)."""
+    if overdamped:
+        return torch.sqrt(2 * KB * T / (gamma * masses3))
+    return torch.sqrt(2 * KB * T * gamma * masses3)
+
+
+def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
+                   masses3, T, gamma, dt, nsteps: int,
+                   gen: Optional[torch.Generator] = None,
+                   save_every: Optional[int] = None, sigmascaled=True):
+    """Underdamped ABOBA with Girsanov weights over positions q and
+    momenta p (B, 3N).  Per step, with d = exp(-gamma dt) and
+    f = sqrt(kB T m (1 - d^2)):
+
+        q += dt/2 p/m                                    (A)
+        B = bias(q, t, sigma, F); [B *= sigma]; deta = (d+1)/f dt/2 B
+        logw -= eta . deta + |deta|^2 / 2
+        p += dt/2 (F + B); p = d p + f eta; p += dt/2 (F + B)   (B O B)
+        q += dt/2 p/m                                    (A)
+
+    ``gen=None`` runs the noiseless recursion (eta = 0).  Returns
+    (q, p, logw), or (qs, logws, (q, p, logw)) with ``save_every``."""
+    sig = constants(masses3, T, gamma, overdamped=False)
+    d = math.exp(-gamma * dt)
+    famp = torch.sqrt(KB * T * masses3 * (1.0 - d * d))
+    t2 = dt / 2.0
+    q, p = x0, p0
+    logw = torch.zeros(x0.shape[:-1], dtype=x0.dtype, device=x0.device)
+    t = 0.0
+    qs, logws = [], []
+    for i in range(int(nsteps)):
+        eta = (torch.randn(p.shape, generator=gen, dtype=p.dtype).to(p.device)
+               if gen is not None else torch.zeros_like(p))
+        q = q + t2 * p / masses3                                     # A
+        F = force_fn(q)
+        if bias_fn is not None:
+            B = bias_fn(q, t=t, sigma=sig, F=F)
+            if sigmascaled:
+                B = B * sig
+            deta = (d + 1.0) / famp * t2 * B
+            logw = logw - (torch.sum(eta * deta, dim=-1)
+                           + torch.sum(deta * deta, dim=-1) / 2)
+            F = F + B
+        b = t2 * F
+        p = p + b                                                    # B
+        p = d * p + famp * eta                                       # O
+        p = p + b                                                    # B
+        q = q + t2 * p / masses3                                     # A
+        t += dt
+        if save_every and (i + 1) % save_every == 0:
+            qs.append(q)
+            logws.append(logw)
+    if save_every:
+        return torch.stack(qs), torch.stack(logws), (q, p, logw)
+    return q, p, logw
+
+
+def shift_and_scale(xs, ys):
+    """Affine fit ys ~ bias + scale xs; returns (bias, scale, limit) with
+    limit = bias / (1 - scale)."""
+    xs = np.asarray(xs, dtype=float).ravel()
+    ys = np.asarray(ys, dtype=float).ravel()
+    X = np.stack([np.ones_like(xs), xs], axis=1)
+    beta = np.linalg.pinv(X) @ ys
+    bias, scale = beta[0], beta[1]
+    return bias, scale, bias / (1.0 - scale)
+
+
+# floor of the value function psi = lam_t (chi - b) + b inside the
+# optimal-control bias; the Girsanov kernel uses the same constant
+PSI_FLOOR = 1e-2
+
+
+def optcontrol(iso, forcescale=1.0):
+    """The chi-derived optimal importance-sampling bias.
+
+    Fits Kchi ~ shift + lam chi, raises ``DomainError`` unless
+    0 < lam <= 1, and returns ``bias(x, t, sigma, F) = forcescale sigma
+    grad log max(psi, PSI_FLOOR)`` with psi = lam_t (chi - b) + b,
+    lam_t = exp(qrate (Tmax - t)), qrate = log(lam) / Tmax, Tmax the lag
+    (sigma-scaled convention; the gradient comes from ``torch.autograd``).
+    The model is a frozen copy of ``iso.model`` at this call.  The callable
+    carries ``optcontrol_spec`` (model, featurizer, forcescale, b, qrate,
+    Tmax), from which the Girsanov kernel runs the same bias."""
+    from ..targets import DomainError
+
+    sim = iso.data.sim
+    chi1 = iso.chis().cpu().numpy().ravel()
+    kchi = iso.koopman().cpu().numpy().ravel()
+    shift, lam, _ = shift_and_scale(chi1, kchi)
+    Tmax = sim.lagtime
+    if not (0.0 < lam <= 1.0):
+        raise DomainError(
+            f"expected contracting Koopman operator (fitted lambda={lam:.4g}"
+            " outside (0, 1]; chi is not yet converged enough for a"
+            " well-defined optimal-control bias)")
+    qrate = math.log(lam) / Tmax
+    b = shift / (1.0 - lam) if abs(1.0 - lam) > 1e-12 else 0.5
+
+    featurizer = iso.data.featurizer
+    model = copy.deepcopy(iso.model).requires_grad_(False)
+    floor = torch.tensor(PSI_FLOOR)
+
+    def bias_fn(x, t, sigma, F):
+        lam_t = math.exp(qrate * (Tmax - float(t)))
+        with torch.enable_grad():
+            z = x.detach().requires_grad_(True)
+            chi = model(featurizer(z))[..., 0]
+            psi = torch.maximum(lam_t * (chi - b) + b, floor.to(z.device))
+            (g,) = torch.autograd.grad(torch.log(psi).sum(), z)
+        return forcescale * sigma * g
+
+    bias_fn.optcontrol_spec = dict(
+        model=model, featurizer=featurizer, forcescale=float(forcescale),
+        b=float(b), qrate=float(qrate), Tmax=float(Tmax))
+    return bias_fn

@@ -29,6 +29,9 @@ from .system import COULOMB, MDSystem
 MAX_ATOMS = 64          # the kernel's shared-memory state holds <= 64 atoms
 H100_FP32_PEAK = 67e12  # FLOP/s outside the tensor cores, H100 SXM, 700 W
 H100_HBM_BYTES_PER_S = 3.35e12
+# natoms np nb na nd use_rf | rc krf | periodic | bx by bz
+GEOMETRY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [
+    ctypes.c_int] + [ctypes.c_float] * 3
 
 
 class LangevinPlan:
@@ -122,7 +125,8 @@ class LangevinPlan:
         return self._dev[key]
 
     def geometry_args(self):
-        """The scalar arguments shared by both C entry points."""
+        """The scalar arguments shared by the C entry points that take the
+        force field (``GEOMETRY_ARGTYPES``)."""
         bx, by, bz = self.box if self.box is not None else (1.0, 1.0, 1.0)
         return [ctypes.c_int(self.natoms), ctypes.c_int(self.np),
                 ctypes.c_int(self.nb), ctypes.c_int(self.na),
@@ -158,6 +162,18 @@ def bound_ms(plan: LangevinPlan, nwalkers: int, nsteps: int):
 # Plain PyTorch version (same arithmetic as the kernel, in tensor ops)
 # ==========================================================================
 
+def pair_delta(plan: LangevinPlan, X):
+    """Pair rows i < j of (B, N, 3) positions: d = x_i - x_j (B, np, 3),
+    minimum-imaged when periodic, and r^2 + 1e-12 (B, np)."""
+    tb = plan.on(X.device)
+    d = (X.index_select(1, tb["pairs"][:, 0])
+         - X.index_select(1, tb["pairs"][:, 1]))
+    if plan.box is not None:
+        box = torch.tensor(plan.box, dtype=X.dtype, device=X.device)
+        d = d - box * torch.round(d * (1.0 / box))
+    return d, torch.sum(d * d, dim=-1) + 1e-12
+
+
 def forces_plain(plan: LangevinPlan, x):
     """Forces (B, 3N) -> (B, 3N) by the kernel's per-term formulas."""
     tb = plan.on(x.device)
@@ -166,11 +182,7 @@ def forces_plain(plan: LangevinPlan, x):
     F = torch.zeros_like(X)
 
     pi, pj = tb["pairs"][:, 0], tb["pairs"][:, 1]
-    d = X.index_select(1, pi) - X.index_select(1, pj)
-    if plan.box is not None:
-        box = torch.tensor(plan.box, dtype=x.dtype, device=x.device)
-        d = d - box * torch.round(d * (1.0 / box))
-    r2 = torch.sum(d * d, dim=-1) + 1e-12
+    d, r2 = pair_delta(plan, X)
     inv_r2 = 1.0 / r2
     r = torch.sqrt(r2)
     x6 = (tb["rmin"] * tb["rmin"] * inv_r2) ** 3
@@ -272,8 +284,12 @@ def _check_card(x, plan, name):
                                   f"atoms, not {plan.natoms}")
 
 
-class _CudaKernel:
-    """Lazily built ``langevin_middle.cu`` and its launch counter."""
+class CudaKernel:
+    """A lazily built ``csrc`` library (``name``, ``source``) and the launch
+    counter of one of its entry points.  Subclasses declare the C
+    signatures in ``_declare``."""
+
+    name = source = None
 
     def __init__(self):
         self.launches = 0
@@ -283,18 +299,13 @@ class _CudaKernel:
     def lib(self):
         if self._lib is None:
             from .._build import load_library
-            lib, self.build_seconds = load_library("langevin_middle",
-                                                   "langevin_middle.cu")
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            geo = [i, i, i, i, i, i, f, f, i, f, f, f]
-            lib.lm_forces.argtypes = [p, p, i, p, p] + geo + [p]
-            lib.lm_forces.restype = i
-            lib.lm_langevin_middle.argtypes = (
-                [p, p, i, p, p] + geo
-                + [i, ctypes.c_ulonglong, i, f, f, f, p])
-            lib.lm_langevin_middle.restype = i
+            lib, self.build_seconds = load_library(self.name, self.source)
+            self._declare(lib)
             self._lib = lib
         return self._lib
+
+    def _declare(self, lib):
+        raise NotImplementedError
 
     @staticmethod
     def _raise(err, name):
@@ -302,7 +313,22 @@ class _CudaKernel:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-class Forces(_CudaKernel):
+class _LangevinLib(CudaKernel):
+    """``langevin_middle.cu``: ``lm_forces`` and ``lm_langevin_middle``."""
+
+    name, source = "langevin_middle", "langevin_middle.cu"
+
+    def _declare(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.lm_forces.argtypes = [p, p, i, p, p] + GEOMETRY_ARGTYPES + [p]
+        lib.lm_forces.restype = i
+        lib.lm_langevin_middle.argtypes = (
+            [p, p, i, p, p] + GEOMETRY_ARGTYPES
+            + [i, ctypes.c_ulonglong, i, f, f, f, p])
+        lib.lm_langevin_middle.restype = i
+
+
+class Forces(_LangevinLib):
     """``forces(plan, x)``: (B, 3N) -> (B, 3N)."""
 
     def __call__(self, plan: LangevinPlan, x):
@@ -323,7 +349,7 @@ class Forces(_CudaKernel):
         return f
 
 
-class LangevinMiddle(_CudaKernel):
+class LangevinMiddle(_LangevinLib):
     """``langevin_middle(plan, x, v, nsteps, gen, noise=True)`` -> (x, v).
 
     The kernel's Philox seed is drawn from ``gen``; the same generator

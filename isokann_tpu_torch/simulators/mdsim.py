@@ -5,12 +5,22 @@ LangevinMiddle path.  Defaults mirror the reference: 310 K, friction 1/ps,
 2 fs steps, 100 steps per Koopman lag, auto cutoff method, the bundled
 alanine dipeptide.
 
-Every propagation goes through ``md.langevin_kernel.langevin_middle``: on
-the card that is the hand-written CUDA kernel (any batch size, B = 1
-included), on the CPU its plain PyTorch version.  On the card the kernel
-takes systems of up to 64 atoms and raises for larger ones.  GBSA,
-constraints, virtual sites, Ewald, bias and the Brownian integrator are
-not ported.
+Every unbiased propagation goes through
+``md.langevin_kernel.langevin_middle``: on the card that is the
+hand-written CUDA kernel (any batch size, B = 1 included), on the CPU its
+plain PyTorch version.  On the card the kernel takes systems of up to 64
+atoms and raises for larger ones.
+
+With a ``bias`` (``md.integrators.optcontrol``), ``propagate`` runs
+Girsanov-weighted ABOBA and returns ``WeightedSamples``: on the card
+through ``md.girsanov_kernel.aboba_girsanov`` (the hand-written kernel,
+any batch size) when the bias's chi model is one the kernel takes, and
+raising otherwise; on the CPU through the plain recursion
+``md.integrators.aboba_girsanov`` with the bias callable.  As in the
+reference, biased walkers that diverge are not retried.
+
+GBSA, constraints, virtual sites, Ewald, a biased ``trajectory`` and the
+Brownian integrator are not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +30,9 @@ import warnings
 import torch
 
 from .._device import make_generator, resolve_device
-from ..features import default_featurizer
+from ..data import WeightedSamples
+from ..features import FeaturesAll, default_featurizer
+from ..md import girsanov_kernel as GK
 from ..md import integrators as I
 from ..md import langevin_kernel as LK
 from ..md.pdbio import read_pdb
@@ -37,13 +49,18 @@ class MDSimulation(IsoSimulation):
     - features: None (all pairs under 100 atoms) or a callable
     - method/cutoff: nonbonded method ("auto": CutoffPeriodic with a box,
       CutoffNonPeriodic without)
+    - bias: optional ``bias(x, t, sigma, F) -> u`` (sigma-scaled), e.g.
+      ``optcontrol(iso)``: ``propagate`` then returns Girsanov-weighted
+      ``WeightedSamples``
     - device: where walkers live; default "cuda", raising without a GPU
     """
 
     def __init__(self, pdb=None, steps: int = 100, temp: float = 310.0,
                  friction: float = 1.0, step: float = 0.002, features=None,
-                 method: str = "auto", cutoff: float = 1.0, device=None):
+                 method: str = "auto", cutoff: float = 1.0, bias=None,
+                 device=None):
         self.device = resolve_device(device)
+        self.bias = bias
         if pdb is None:
             from ..md.fixtures import alanine_dipeptide_pdb
             pdb = alanine_dipeptide_pdb()
@@ -100,11 +117,50 @@ class MDSimulation(IsoSimulation):
         v0 = self.random_velocities(gen, xs.shape)
         return self._integrate(xs, v0, nsteps, gen)[0]
 
+    def _girsanov(self, xs, p0, nsteps, gen):
+        """Biased ABOBA for (B, 3N) walkers -> (q, logw).  On the card an
+        ``optcontrol`` bias whose chi model the kernel takes runs in the
+        Girsanov kernel, any other bias raises; on the CPU the plain
+        recursion runs with the bias callable."""
+        spec = getattr(self.bias, "optcontrol_spec", None)
+        if xs.device.type == "cpu":
+            q, _, logw = I.aboba_girsanov(
+                lambda z: LK.forces(self.plan, z), self.bias, xs, p0,
+                self.masses3, self.temp, self.friction, self.step, nsteps,
+                gen)
+            return q, logw
+        if spec is None or not self.kernel_takes_bias():
+            raise NotImplementedError(
+                f"no Girsanov kernel on {xs.device} for this bias: the "
+                f"card takes optcontrol biases over FeaturesAll with a "
+                f"sigmoid / identity MLP chi model")
+        plan = GK.GirsanovPlan.for_model(self.plan, spec["model"],
+                                         spec["forcescale"])
+        q, _, logw = GK.aboba_girsanov(
+            plan, spec["model"], xs, p0, nsteps, spec["b"], spec["qrate"],
+            spec["Tmax"], gen)
+        return q, logw
+
+    def kernel_takes_bias(self) -> bool:
+        """Whether the Girsanov kernel computes ``self.bias``: an
+        ``optcontrol`` bias over ``FeaturesAll`` whose chi model is a
+        sigmoid / identity MLP over all pair distances (any LayerNorm),
+        for a system of at most 64 atoms."""
+        spec = getattr(self.bias, "optcontrol_spec", None)
+        return (spec is not None
+                and isinstance(spec["featurizer"], FeaturesAll)
+                and GK.takes_model(spec["model"], self.plan.np)
+                and self.natoms <= LK.MAX_ATOMS)
+
     def propagate(self, x0, nk, gen=None, steps=None):
         """(n, 3N) -> (n, nk, 3N) Koopman bursts: all n*nk walkers in one
         launch.  The walker count is padded to a power of two (>= 8), as
         in the reference; walkers that diverge are retried up to three
-        times with fresh noise, then fall back to their start state."""
+        times with fresh noise, then fall back to their start state.
+
+        With a bias: ``WeightedSamples`` of the bursts (n, nk, 3N) and
+        their Girsanov weights exp(logw) (n, nk), from momenta drawn from
+        the Maxwell-Boltzmann distribution; no retry."""
         gen = make_generator(gen)
         x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
         n, d = x0.shape
@@ -114,6 +170,11 @@ class MDSimulation(IsoSimulation):
         bucket = max(8, 1 << (nw - 1).bit_length())
         if bucket != nw:
             xs = torch.cat([xs, xs[-1:].expand(bucket - nw, d)], dim=0)
+        if self.bias is not None:
+            p0 = self.random_velocities(gen, xs.shape) * self.masses3
+            q, logw = self._girsanov(xs, p0, nsteps, gen)
+            return WeightedSamples(q[:nw].reshape(n, nk, d),
+                                   torch.exp(logw[:nw]).reshape(n, nk))
         ys = self._run(xs, nsteps, gen)[:nw]
         for _ in range(3):
             bad = ~torch.isfinite(ys).all(dim=-1)
@@ -132,7 +193,10 @@ class MDSimulation(IsoSimulation):
                    sample_velocities=True, resample_velocities=False,
                    gen=None):
         """(nsave, 3N) single-walker trajectory, one kernel launch (B = 1)
-        per saved frame.  Stops early with a warning if it diverges."""
+        per saved frame.  Stops early with a warning if it diverges.
+        Unbiased only: a biased trajectory is not ported."""
+        if self.bias is not None:
+            raise NotImplementedError("a biased trajectory is not ported")
         gen = make_generator(gen)
         steps = self.steps if steps is None else int(steps)
         x = (self._x0 if x0 is None else torch.as_tensor(

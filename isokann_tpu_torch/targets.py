@@ -1,5 +1,5 @@
 """ISOKANN target transforms; counterpart of the 1-D shift-scale path of
-``isokann_tpu/targets.py``."""
+``isokann_tpu/targets.py`` and of its Koopman ``expectation``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,18 @@ import torch
 class DomainError(ValueError):
     """Raised when a target transform degenerates (constant chi) or the
     model collapses under training."""
+
+
+def expectation(model, ys):
+    """Monte-Carlo Koopman expectation of ``model`` over the k-axis of
+    ys (n, k, f): the mean, or for ``WeightedSamples`` the Girsanov
+    estimate sum_k w chi / k.  Returns (n, d)."""
+    from .data import WeightedSamples
+
+    if isinstance(ys, WeightedSamples):
+        vals = model(ys.values)
+        return torch.sum(vals * ys.weights[..., None], dim=-2) / vals.shape[-2]
+    return torch.mean(model(ys), dim=-2)
 
 
 def shiftscale_jit(ks, mask=None, n_true=None, quantile=0.0):
