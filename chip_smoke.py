@@ -18,11 +18,20 @@ port's entry points:
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
   Girsanov kernel, 256 padded walkers x 100 ABOBA steps per generation.
 
-It times both kernels.  Each phase prints one line; any failed check exits
-non-zero.  The last two lines are a JSON list of the kernels (launches on
-their path, error against the plain version, times, bound) and
-``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2 without
-one.  Imports nothing of JAX.
+- the reference's trp-cage production loop (``tools/run_trpcage_
+  production.py``): ``peptide_pdb`` builds TC5B (313 atoms) from sequence
+  and minimizes it in OBC2 implicit solvent, ``MDSimulation(steps=100,
+  implicit="obc2")``, ``Iso(nx=100, nk=8)`` over 100 random-pair
+  features, 2 generations of ``run(300)`` + ``resample_strat(3)`` + the
+  2000-point cutoff, then chis/koopman/rates: the nonbonded + GBSA force
+  kernel at every MD step (randx0's 10,000 single-walker steps, 1024
+  walkers x 100 steps in propagate, 32 x 100 per generation).
+
+It times the three kernels.  Each phase prints one line; any failed check
+exits non-zero.  The last two lines are a JSON list of the kernels
+(launches on their path, error against the plain version, times, bound)
+and ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2
+without one.  Imports nothing of JAX.
 """
 
 import json
@@ -81,7 +90,11 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md.fixtures import peptide_pdb
+    from isokann_tpu_torch.md import forces as F
+    from isokann_tpu_torch.md import gb_kernel as GB
     from isokann_tpu_torch.md import girsanov_kernel as GK
+    from isokann_tpu_torch.md import integrators as I
     from isokann_tpu_torch.md import langevin_kernel as LK
     from isokann_tpu_torch.md.integrators import KB
     dev = torch.device("cuda")
@@ -100,9 +113,10 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         for job in [pool.submit(k.lib) for k in (LK.langevin_middle,
-                                                 GK.aboba_girsanov)]:
+                                                 GK.aboba_girsanov,
+                                                 GB.gb_force)]:
             job.result()
     LK.forces.lib()
     GK.chi_grad.lib()
@@ -117,7 +131,8 @@ def main():
     phase("build", t0, f"nvcc langevin_middle "
                        f"{LK.langevin_middle.build_seconds:.2f}s, "
                        f"aboba_girsanov "
-                       f"{GK.aboba_girsanov.build_seconds:.2f}s (parallel)")
+                       f"{GK.aboba_girsanov.build_seconds:.2f}s, gb_force "
+                       f"{GB.gb_force.build_seconds:.2f}s (parallel)")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -404,6 +419,245 @@ def main():
           f"B=1: {cg_ms:.4f} ms {stamp}")
     phase("girsanov_timing", t0)
 
+    # ---- 9. trp-cage path ----------------------------------------------------
+    # tools/run_trpcage_production.py at its production widths: TC5B built
+    # from sequence and minimized in OBC2 (1500 FIRE steps), a 100-step lag,
+    # nx=100 x nk=8, 300 iterations and 3 stratified resamples a
+    # generation, cutoff 2000; only the number of generations is cut.
+    t0 = time.perf_counter()
+    GB.gb_force.launches = 0
+    LK.langevin_middle.launches = 0
+    GK.aboba_girsanov.launches = 0
+    GENS, ITERS, RESAMPLES, CUTOFF, TNX, TNK = 2, 300, 3, 2000, 100, 8
+    pdb = os.path.join(ROOT, "build", "chip_smoke", "trpcage.pdb")
+    t1 = time.perf_counter()
+    peptide_pdb("NLYIQWLKDGGPSSGRPPPS", pdb, minimize=True, maxiter=1500,
+                implicit="obc2")
+    torch.cuda.synchronize()
+    t_min = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tsim = itt.MDSimulation(pdb=pdb, steps=100, implicit="obc2")
+    tgen = itt.make_generator(30)
+    tmodel = tsim.defaultmodel(n=100, gen=tgen)
+    t_sys = time.perf_counter() - t1
+    require(tsim.natoms == 313 and tsim.route == "hybrid"
+            and isinstance(tsim.featurizer, itt.FeaturesRandomPairs),
+            "trp-cage: 313 atoms on the hybrid route, random-pair features")
+    t1 = time.perf_counter()
+    xs0 = tsim.randx0(TNX, gen=tgen)
+    torch.cuda.synchronize()
+    t_x0 = time.perf_counter() - t1
+    n_x0 = GB.gb_force.launches
+    t1 = time.perf_counter()
+    ys0 = tsim.propagate(xs0, TNK, gen=tgen)
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    tdata = itt.SimulationData.from_coords(tsim, xs0, ys0)
+    tiso = itt.Iso(data=tdata, model=tmodel, opt=itt.AdamRegularized(),
+                   gen=31)
+    gen_rows = []
+    for g in range(GENS):
+        t1 = time.perf_counter()
+        n_l = len(tiso.losses)
+        tiso.run(ITERS)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t1
+        tiso.resample_strat(RESAMPLES)
+        if len(tiso.data) > CUTOFF:
+            tiso.data = tiso.data[len(tiso.data) - CUTOFF:]
+        torch.cuda.synchronize()
+        gl = tiso.losses[n_l:]
+        gen_rows.append(dict(gen=g, n=len(tiso.data),
+                             t_gen=time.perf_counter() - t1,
+                             t_train=t_train, loss_first=gl[0] if gl else
+                             None, loss_last=gl[-1] if gl else None))
+        print(f"  gen {g}: {gen_rows[-1]}")
+    tchi = tiso.chis()
+    tkchi = tiso.koopman()
+    tQ = tiso.rates()
+    d_launches = GB.gb_force.launches
+    want = (TNX * 100 + 100 + 100 * GENS + 100 * tsim.retries)
+    print(f"  trp-cage: peptide_pdb (build + 1500 FIRE steps) {t_min:.3f}s, "
+          f"MDSimulation + model {t_sys:.3f}s, randx0({TNX}) {t_x0:.3f}s "
+          f"({n_x0} launches), propagate {TNX}x{TNK} {t_prop:.3f}s, "
+          f"generations {[round(r['t_gen'], 3) for r in gen_rows]}s "
+          f"(train {[round(r['t_train'], 3) for r in gen_rows]}s), "
+          f"retries {tsim.retries}, gb_force launches {d_launches} "
+          f"(expected {want}), LangevinMiddle "
+          f"{LK.langevin_middle.launches}, rates diag "
+          f"{np.diag(tQ).tolist()} {stamp}")
+    require(d_launches == want, "gb_force launches = 100 per lag-100 run")
+    require(LK.langevin_middle.launches == 0
+            and GK.aboba_girsanov.launches == 0,
+            "the trp-cage path runs no other kernel")
+    require(tdata.propcoords.shape == (TNX, TNK, tsim.dim)
+            and bool(torch.isfinite(tiso.data.propcoords).all()),
+            "finite trp-cage bursts")
+    tl = np.asarray(tiso.losses)
+    require(len(tl) == GENS * ITERS and np.all(np.isfinite(tl))
+            and tl[-1] < tl[0], "losses finite and falling")
+    require(len(tiso.data) == TNX + GENS * RESAMPLES,
+            "resample_strat added 3 points a generation")
+    require(tchi.shape == (len(tiso.data), 1)
+            and bool(torch.isfinite(tchi).all())
+            and bool(torch.isfinite(tkchi).all()), "chis finite")
+    require(np.all(np.diag(tQ) < 0), "rates() has a negative diagonal")
+    phase("trpcage_path", t0, f"randx0 {t_x0:.3f}s propagate {t_prop:.3f}s")
+
+    # ---- 10. gb_force against plain ------------------------------------------
+    t0 = time.perf_counter()
+    vsim = itt.MDSimulation(pdb=pdb, steps=100, method="CutoffNonPeriodic")
+    require(vsim.route == "hybrid", "vacuum trp-cage on the hybrid route")
+    rng = np.random.default_rng(40)
+    gb_err = 0.0
+    for label, s in (("OBC2", tsim), ("vacuum RF", vsim)):
+        xg = (s.coords[None] + torch.as_tensor(
+            rng.normal(scale=0.005, size=(256, s.dim)), dtype=torch.float32,
+            device=dev)).contiguous()
+        for b in (1, 37, 256):
+            xb = xg[:b].contiguous()
+            f_k = GB.gb_force(s.gbplan, xb)
+            f_p = GB.gb_force_plain(s.gbplan, xb)
+            rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+            gb_err = max(gb_err, float((f_k - f_p).abs().max()))
+            print(f"  gb_force {label} B={b}: max rel err {rel:.3e} (tol "
+                  f"1e-5), max |F| {float(f_p.abs().max()):.1f}")
+            require(rel < 1e-5, f"gb_force vs plain, {label}, B={b}")
+        require(torch.equal(GB.gb_force(s.gbplan, xg),
+                            GB.gb_force(s.gbplan, xg)),
+                f"gb_force {label}: the same input gives the same bits")
+
+    # minimum image: the bundled alanine (CutoffPeriodic reaction field,
+    # box from its PDB), each atom moved by -1, 0 or 1 box lengths per
+    # axis, so that the image changes pairs across a wrap
+    pplan = GB.GBPlan(sim.system)
+    require(pplan.box is not None, "alanine plan is periodic")
+    xa = (sim.coords[None] + torch.as_tensor(
+        rng.normal(scale=0.005, size=(256, sim.dim)), dtype=torch.float32,
+        device=dev)).contiguous()
+    shift = torch.as_tensor(rng.integers(-1, 2, size=(256, pplan.A, 3)),
+                            dtype=torch.float32, device=dev)
+    xw = (xa.reshape(256, pplan.A, 3) + shift * torch.tensor(
+        pplan.box, device=dev)).reshape(256, sim.dim).contiguous()
+    for b in (1, 37, 256):
+        f_k = GB.gb_force(pplan, xw[:b].contiguous())
+        f_p = GB.gb_force_plain(pplan, xw[:b].contiguous())
+        rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+        gb_err = max(gb_err, float((f_k - f_p).abs().max()))
+        print(f"  gb_force periodic RF (alanine, wrapped atoms) B={b}: max "
+              f"rel err {rel:.3e} (tol 1e-5), max |F| "
+              f"{float(f_p.abs().max()):.1f}")
+        require(rel < 1e-5, f"gb_force vs plain, periodic RF, B={b}")
+    f_u = GB.gb_force_plain(pplan, xa)
+    wrel = float((GB.gb_force(pplan, xw) - f_u).abs().max()
+                 / f_u.abs().max())
+    print(f"  gb_force periodic RF B=256, wrapped against unwrapped atoms: "
+          f"rel {wrel:.3e} (tol 1e-4)")
+    require(wrel < 1e-4, "minimum image undoes the wraps")
+
+    def plain_force(x):
+        return F.force_flat(tsim.system, x)
+
+    xg = tiso.data.coords[:64].repeat(4, 1).contiguous()     # 256 walkers
+    vg = tsim.random_velocities(itt.make_generator(41), xg.shape)
+    xh, vh = tsim._integrate(xg, vg, 10, None)
+    xp, vp = I.langevin_middle(plain_force, xg, vg, tsim.masses3, tsim.temp,
+                               tsim.friction, tsim.step, 10)
+    xrel = float((xh - xp).abs().max() / xp.abs().max())
+    vrel = float((vh - vp).abs().max() / vp.abs().max())
+    print(f"  noiseless x10 steps B=256, hybrid vs plain force_flat: rel x "
+          f"{xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
+    require(xrel < 1e-5 and vrel < 1e-4, "noiseless hybrid vs plain path")
+
+    # kinetic temperature over the last 500 of 1000 steps, B=256, the same
+    # start and the same noise stream for both paths
+    def kinetic_temperature(step_fn):
+        x, v, temps = xg, vg, []
+        for k in range(10):
+            x, v = step_fn(x, v)
+            if k >= 5:
+                temps.append(float((tsim.masses3 * v * v).sum(dim=1).mean()
+                                   / (tsim.dim * KB)))
+        require(bool(torch.isfinite(x).all()), "finite temperature run")
+        return float(np.mean(temps))
+
+    gh, gp = itt.make_generator(42), itt.make_generator(42)
+    t1 = time.perf_counter()
+    temp_h = kinetic_temperature(lambda x, v: tsim._integrate(x, v, 100, gh))
+    t_th = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    temp_p = kinetic_temperature(lambda x, v: I.langevin_middle(
+        plain_force, x, v, tsim.masses3, tsim.temp, tsim.friction,
+        tsim.step, 100, tsim._noise(gp, dev)))
+    t_tp = time.perf_counter() - t1
+    print(f"  kinetic temperature B=256, steps 500-1000: hybrid {temp_h:.2f} "
+          f"K ({t_th:.1f}s), plain force_flat {temp_p:.2f} K ({t_tp:.1f}s), "
+          f"target 310 K; |diff| {abs(temp_h - temp_p) / temp_p:.3%} (tol "
+          f"1%)")
+    require(abs(temp_h - temp_p) / temp_p < 0.01,
+            "hybrid and plain paths at the same temperature")
+    # a second witness: the hybrid path at half the step over the same
+    # 2 ps (2000 steps of 1 fs, read over the same 1-2 ps window)
+    g1 = itt.make_generator(43)
+    t1 = time.perf_counter()
+    temp_h1 = kinetic_temperature(lambda x, v: I.langevin_middle(
+        tsim.force, x, v, tsim.masses3, tsim.temp, tsim.friction,
+        tsim.step / 2, 200, tsim._noise(g1, dev)))
+    t_th1 = time.perf_counter() - t1
+    print(f"  kinetic temperature B=256, 1-2 ps: hybrid at 2 fs {temp_h:.2f}"
+          f" K, at 1 fs {temp_h1:.2f} K ({t_th1:.1f}s); excess over 310 K "
+          f"{temp_h / 310.0 - 1:.2%} and {temp_h1 / 310.0 - 1:.2%}")
+    # two more witnesses at 2 fs: trp-cage without GB (vacuum NoCutoff, a
+    # smooth potential) on the same start, and alanine through the plain
+    # recursion of the hybrid route (with the forces entry of kernel A's
+    # module, held to its plain version in phase 3) on the start and for
+    # the steps of phase 3's kernel A temperature run
+    nsim = itt.MDSimulation(pdb=pdb, steps=100, method="NoCutoff")
+    require(nsim.route == "hybrid", "vacuum NoCutoff trp-cage on the "
+                                    "hybrid route")
+    gn = itt.make_generator(44)
+    temp_n = kinetic_temperature(lambda x, v: nsim._integrate(x, v, 100, gn))
+    ga = itt.make_generator(45)
+    _, va = I.langevin_middle(sim.force, xT, vT, m3, sim.temp, sim.friction,
+                              sim.step, NT, sim._noise(ga, dev))
+    temp_a = float((m3 * va * va).sum(dim=1).mean() / (sim.dim * KB))
+    print(f"  kinetic temperature at 2 fs: trp-cage vacuum NoCutoff "
+          f"{temp_n:.2f} K (B=256, 1-2 ps); alanine plain recursion "
+          f"{temp_a:.2f} K (B={BT} after {NT} steps; kernel A {temp:.2f} K)")
+    require(abs(temp_a - temp) / temp < 0.01,
+            "alanine: plain recursion and kernel A at the same temperature")
+    phase("gb_vs_plain", t0, "OBC2, vacuum RF and periodic RF at B=1/37/256, "
+                             "same bits, noiseless steps, temperature")
+
+    # ---- 11. gb_force timing ---------------------------------------------------
+    t0 = time.perf_counter()
+    plan = tsim.gbplan
+    d_ms = {}
+    for b in (1, 32, 1024, 16384):
+        xb = tsim.coords[None].expand(b, tsim.dim).contiguous()
+        d_ms[b] = cuda_ms(lambda: GB.gb_force(plan, xb),
+                          reps=20 if b < 16384 else 3)
+        bb, by = GB.bound_ms(plan, b)
+        print(f"  gb_force OBC2 B={b}: {d_ms[b]:.4f} ms, bound {bb:.4f} ms "
+              f"({by}, {bb / d_ms[b]:.2%} of it) {stamp}")
+    d_plain = {}
+    for b in (256, 1024):
+        xb = tsim.coords[None].expand(b, tsim.dim).contiguous()
+        d_plain[b] = cuda_ms(lambda: GB.gb_force_plain(plan, xb), reps=3)
+    d_bms, d_by = GB.bound_ms(plan, 1024)
+    print(f"  gb_force OBC2 operations a walker: {GB.step_ops(plan):.0f} the "
+          f"function needs (the bound's), {GB.kernel_ops(plan):.0f} the "
+          f"kernel executes")
+    vb = vsim.coords[None].expand(1024, vsim.dim).contiguous()
+    v_ms = cuda_ms(lambda: GB.gb_force(vsim.gbplan, vb), reps=20)
+    x1 = tsim.coords[None].contiguous()
+    bonded_ms = cuda_ms(lambda: F.bonded_force_flat(tsim.system, x1),
+                        reps=20)
+    print(f"  gb_force plain B=256: {d_plain[256]:.3f} ms, B=1024: "
+          f"{d_plain[1024]:.3f} ms; vacuum RF kernel B=1024: {v_ms:.4f} ms; "
+          f"bonded autograd B=1: {bonded_ms:.4f} ms {stamp}")
+    phase("gb_timing", t0)
+
     kernels = [{
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
@@ -417,6 +671,13 @@ def main():
         "replaces": "isokann_tpu/md/pallas_md.py:558",
         "launches": g_launches, "max_abs_err": gerr, "ms": gtimes[256],
         "plain_ms": g_plain_ms, "bound_ms": g_bms, "bound_by": g_by,
+        "library_ms": None,
+    }, {
+        "name": "gb_force", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/gb_force.cu",
+        "replaces": "isokann_tpu/md/pallas_gb.py:501",
+        "launches": d_launches, "max_abs_err": gb_err, "ms": d_ms[1024],
+        "plain_ms": d_plain[1024], "bound_ms": d_bms, "bound_by": d_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

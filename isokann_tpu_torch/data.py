@@ -1,13 +1,15 @@
 """SimulationData, Girsanov-weighted samples and capacity-bucket padding;
 counterpart of ``isokann_tpu/data.py`` (``WeightedSamples``, ``lastcat``,
-``SimulationData`` with its merging and KDE resampling) and of the
-``bucket_capacity``/``_pad_rows`` helpers of ``isokann_tpu/iso.py``.
+``SimulationData`` with its merging, chi-stratified and KDE resampling,
+``subsample_inds``) and of the ``bucket_capacity``/``_pad_rows`` helpers
+of ``isokann_tpu/iso.py``.
 
 Arrays are batch-leading tensors on the simulation's device:
 xs (n, d), ys (n, k, d), features (n, f) and (n, k, f); ys and their
 features may be ``WeightedSamples`` (values (n, k, ...), weights (n, k)).
 Host numpy is used only for host decisions: the byte comparison of
-``resample_kde(unique=True)``, the KDE picks and the ESS diagnostic.
+``resample_kde(unique=True)``, the stratified and KDE picks and the ESS
+diagnostic.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ._device import make_generator
+from ._device import draw_seed, make_generator
 
 
 def identity(x):
@@ -99,6 +101,29 @@ def pad_rows(a, cap: int):
         raise ValueError("cannot pad an empty batch")
     reps = -(-(cap - n) // n)
     return torch.cat([a] + [a] * reps, dim=0)[:cap]
+
+
+def subsample_inds(model, xs, n, keepedges=True, seed=None):
+    """Indices such that ``model(xs[inds])`` is approximately uniform, per
+    chi dimension; a (near-)constant chi falls back to uniform random
+    picks.  The same ``seed`` gives the same picks, as the JAX package's
+    from a key whose last word is that seed."""
+    from .sample import subsample_uniformgrid
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        chi = model(xs).detach().cpu().numpy()           # (m, d)
+    inds = []
+    for j in range(chi.shape[-1]):
+        col = chi[:, j]
+        lo, hi = col.min(), col.max()
+        if hi - lo < 1e-12:
+            inds.extend(rng.choice(
+                len(col), size=min(n, len(col)), replace=False))
+            continue
+        inds.extend(subsample_uniformgrid((col - lo) / (hi - lo), n,
+                                          keepedges=keepedges, rng=rng))
+    return np.asarray(inds, dtype=int)
 
 
 @dataclass
@@ -189,6 +214,23 @@ class SimulationData:
         new = SimulationData.from_sim(self.sim, xs=coords, nk=self.nk,
                                       featurizer=self.featurizer, gen=gen)
         return self.merge(new)
+
+    def resample_strat(self, model, n, keepedges=False, gen=None):
+        """Add ``n`` start points picked among the bursts' end points,
+        stratified uniformly in chi (``chistratcoords``)."""
+        if n == 0:
+            return self
+        gen = make_generator(gen)
+        xs = self.chistratcoords(model, n, keepedges=keepedges,
+                                 seed=draw_seed(gen))
+        return self.addcoords(xs, gen=gen)
+
+    def chistratcoords(self, model, n, keepedges=False, seed=None):
+        """The bursts' end points picked by ``subsample_inds``."""
+        idxs = subsample_inds(model, flattenfirst(self.propfeatures), n,
+                              keepedges=keepedges, seed=seed)
+        cs = flattenfirst(self.propcoords)
+        return cs[torch.as_tensor(idxs, device=cs.device)]
 
     def resample_kde(self, model, n, bandwidth=0.02, unique=True, gen=None):
         """Add ``n`` start points picked among the bursts' end points so

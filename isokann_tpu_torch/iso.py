@@ -16,8 +16,8 @@ this is an eager loop with the same semantics (``iso.py:78-156`` there):
 - Girsanov-weighted bursts (``WeightedSamples``) give the weighted
   Koopman estimate sum_k w chi / k, as the reference's ``yw`` does.
 
-Adaptive sampling: ``addcoords``, ``resample_kde`` and ``run_kde``
-(``iso.py:563-619`` there).
+Adaptive sampling: ``addcoords``, ``resample_kde``, ``resample_strat``
+and ``run_kde`` (``iso.py:563-619`` there).
 """
 
 from __future__ import annotations
@@ -151,6 +151,12 @@ class Iso:
         """Add ``ny`` start points by KDE gap-filling in chi."""
         self.data = self.data.resample_kde(self.model, ny, gen=self.gen,
                                            **kwargs)
+        return self
+
+    def resample_strat(self, ny, **kwargs):
+        """Add ``ny`` start points stratified uniformly in chi."""
+        self.data = self.data.resample_strat(self.model, ny, gen=self.gen,
+                                             **kwargs)
         return self
 
     def run_kde(self, generations=1, iter=100, cutoff=np.inf, kde=1,

@@ -1,7 +1,8 @@
 """Batched force-field energies in PyTorch; forces by autograd.
 
 Counterpart of ``isokann_tpu/md/forces.py`` for the NoCutoff and
-reaction-field (CutoffNonPeriodic / CutoffPeriodic) methods.  Energies in
+reaction-field (CutoffNonPeriodic / CutoffPeriodic) methods and OBC2
+implicit solvent (``gbsa_obc2_energy``).  Energies in
 kJ/mol; coordinates (..., natoms, 3) in nm; every term sums over the last
 two axes so batches need no vmap.
 """
@@ -103,13 +104,71 @@ def dispersion_correction_energy(sys: MDSystem):
                                   - sys.disp_c6sum / (3.0 * rc ** 3))
 
 
+def gbsa_obc2_energy(sys: MDSystem, x):
+    """OBC2 generalized-Born + ACE surface-area implicit solvent, all
+    pairs: HCT descreening integrals with the OBC tanh rescaling (alpha,
+    beta, gamma = 1.0, 0.8, 4.85), the pair energy f_GB = sqrt(r^2 + BiBj
+    exp(-r^2 / 4BiBj)) with eps_solvent = 78.5, and the ACE term
+    28.3919551 kJ/mol/nm^2 (r + 0.14)^2 (r/B)^6.  x: (B, n, 3) -> (B,)."""
+    n = sys.natoms
+    offset = 0.009
+    radii = sys.gb_radii
+    orad = radii - offset
+    sr = sys.gb_scales * orad
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+
+    diff = x[:, :, None, :] - x[:, None, :, :]
+    r2 = torch.sum(diff * diff, dim=-1) + eye
+    r = torch.sqrt(r2)
+
+    # HCT descreening integral I_ij (contribution of j to i)
+    or1 = orad[:, None]
+    sr2 = sr[None, :]
+    L = torch.maximum(torch.abs(r - sr2), or1)
+    U = r + sr2
+    invL, invU = 1.0 / L, 1.0 / U
+    I = 0.5 * (invL - invU + 0.25 * (r - sr2 ** 2 / r)
+               * (invU ** 2 - invL ** 2) + 0.5 * torch.log(L / U) / r)
+    # inside correction when atom i is engulfed: or1 < sr2 - r
+    I = I + torch.where(or1 < sr2 - r, 2.0 * (1.0 / or1 - invL), 0.0)
+    # only pairs where the descreening sphere reaches atom i
+    I = torch.where(r + sr2 > or1, I, 0.0)
+    I = I * (1.0 - eye)
+    Ii = torch.sum(I, dim=-1)
+
+    psi = Ii * orad
+    B = 1.0 / (1.0 / orad
+               - torch.tanh(psi - 0.8 * psi ** 2 + 4.85 * psi ** 3) / radii)
+    B = torch.maximum(B, orad)
+
+    eps_solvent = 78.5
+    pref = -0.5 * COULOMB * (1.0 - 1.0 / eps_solvent)
+    qq = sys.charges[:, None] * sys.charges[None, :]
+    BB = B[:, :, None] * B[:, None, :]
+    fgb = torch.sqrt(r2 + BB * torch.exp(-r2 / (4.0 * BB)))
+    off = torch.sum(qq / fgb * (1.0 - eye), dim=(-1, -2))
+    self_e = torch.sum(sys.charges ** 2 / B, dim=-1)
+    e_gb = pref * (off + self_e)
+
+    e_sa = torch.sum(28.3919551 * (radii + 0.14) ** 2 * (radii / B) ** 6,
+                     dim=-1)
+    return e_gb + e_sa
+
+
+def bonded_energy(sys: MDSystem, xb):
+    """Bonds + angles + torsions; xb: (B, natoms, 3) -> (B,)."""
+    return (bond_energy(sys, xb) + angle_energy(sys, xb)
+            + dihedral_energy(sys, xb))
+
+
 def potential_energy(sys: MDSystem, x):
     """Total potential; x: (..., natoms, 3) -> (...) kJ/mol."""
     shape = x.shape[:-2]
     xb = x.reshape(-1, sys.natoms, 3)
-    e = (bond_energy(sys, xb) + angle_energy(sys, xb)
-         + dihedral_energy(sys, xb) + nonbonded_energy(sys, xb)
+    e = (bonded_energy(sys, xb) + nonbonded_energy(sys, xb)
          + dispersion_correction_energy(sys))
+    if sys.implicit == "obc2":
+        e = e + gbsa_obc2_energy(sys, xb)
     return e.reshape(shape)
 
 
@@ -119,13 +178,23 @@ def potential_energy_flat(sys: MDSystem, xflat):
                                                + (sys.natoms, 3)))
 
 
-def force_flat(sys: MDSystem, xflat):
-    """Batched forces -grad E on flat coords: (..., 3N) -> (..., 3N)."""
+def _minus_grad(energy, xflat):
     with torch.enable_grad():
         x = xflat.detach().clone().requires_grad_(True)
-        e = potential_energy_flat(sys, x)
-        (g,) = torch.autograd.grad(e.sum(), x)
+        (g,) = torch.autograd.grad(energy(x).sum(), x)
     return -g
+
+
+def force_flat(sys: MDSystem, xflat):
+    """Batched forces -grad E on flat coords: (..., 3N) -> (..., 3N)."""
+    return _minus_grad(lambda x: potential_energy_flat(sys, x), xflat)
+
+
+def bonded_force_flat(sys: MDSystem, xflat):
+    """-grad of the bonded terms alone (bonds, angles, torsions), by
+    autograd: (B, 3N) -> (B, 3N)."""
+    return _minus_grad(lambda x: bonded_energy(
+        sys, x.reshape(x.shape[0], sys.natoms, 3)), xflat)
 
 
 def energy_terms(sys: MDSystem, x):
@@ -142,4 +211,6 @@ def energy_terms(sys: MDSystem, x):
                  nonbonded=out(nonbonded_energy(sys, xb)))
     if sys.use_dispersion:
         terms["dispersion"] = dispersion_correction_energy(sys)
+    if sys.implicit == "obc2":
+        terms["gbsa"] = out(gbsa_obc2_energy(sys, xb))
     return terms

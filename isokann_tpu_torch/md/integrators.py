@@ -7,8 +7,9 @@ chi-derived optimal-control bias (``optcontrol``).  The production paths
 are the hand-written kernels in ``langevin_kernel.py`` and
 ``girsanov_kernel.py``; these recursions serve the CPU and the tests.
 
-Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn on the host
-from an explicit ``torch.Generator`` and moved to the walkers' device.
+Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
+explicit ``torch.Generator`` on that generator's device and moved to the
+walkers' device.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
                          gen: Optional[torch.Generator] = None):
     """One LangevinMiddle step: v += dt f/m; x += dt/2 v;
     v = a v + b sqrt(kBT/m) R; x += dt/2 v, a = exp(-gamma dt),
-    b = sqrt(1 - a^2).  ``gen=None`` drops the noise term (R = 0)."""
+    b = sqrt(1 - a^2).  R is drawn on ``gen``'s device; ``gen=None``
+    drops the noise term (R = 0)."""
     a = math.exp(-gamma * dt)
     b = math.sqrt(1.0 - a * a)
     h = 0.5 * dt
@@ -42,7 +44,8 @@ def langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
     x = x + h * v
     v = a * v
     if gen is not None:
-        z = torch.randn(v.shape, generator=gen, dtype=v.dtype).to(v.device)
+        z = torch.randn(v.shape, generator=gen, dtype=v.dtype,
+                        device=gen.device).to(v.device)
         v = v + b * torch.sqrt(KB * T / masses3) * z
     x = x + h * v
     return x, v

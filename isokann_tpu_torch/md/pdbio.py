@@ -1,8 +1,9 @@
-"""Minimal PDB reading (host-side I/O); counterpart of
+"""Minimal PDB reading and writing (host-side I/O); counterpart of
 ``isokann_tpu/md/pdbio.py``.  Coordinates in nm (PDB files are Angstrom)."""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -15,6 +16,7 @@ class PDBStructure:
     res_names: List[str]
     res_ids: List[int]
     chain_ids: List[str]
+    elements: List[str]
     coords: np.ndarray                 # (natoms, 3) in nm
     box: Optional[np.ndarray] = None   # (3,) box lengths in nm, if CRYST1
 
@@ -23,9 +25,22 @@ class PDBStructure:
         return len(self.atom_names)
 
 
+def _guess_element(name: str) -> str:
+    name = name.strip()
+    if not name:
+        return ""
+    # PDB convention: left-justified names starting with a digit are H
+    if name[0].isdigit():
+        return "H"
+    if name[:2].upper() in ("CL", "NA", "MG", "ZN", "FE", "BR", "CA2"):
+        return name[:2].capitalize()
+    return name[0].upper()
+
+
 def read_pdb(path: str) -> PDBStructure:
     """Parse the ATOM/HETATM records of the first model of a PDB file."""
-    atom_names, res_names, res_ids, chain_ids, xyz = [], [], [], [], []
+    atom_names, res_names, res_ids, chain_ids, elements, xyz = \
+        [], [], [], [], [], []
     box = None
     with open(path) as f:
         for line in f:
@@ -40,8 +55,38 @@ def read_pdb(path: str) -> PDBStructure:
                 res_ids.append(int(line[22:26]))
                 xyz.append([float(line[30:38]), float(line[38:46]),
                             float(line[46:54])])
+                el = line[76:78].strip() if len(line) > 76 else ""
+                elements.append(el if el else _guess_element(line[12:16]))
             elif rec == "ENDMDL":
                 break
     coords = np.asarray(xyz, dtype=np.float64) / 10.0
-    return PDBStructure(atom_names, res_names, res_ids, chain_ids, coords,
-                        box)
+    return PDBStructure(atom_names, res_names, res_ids, chain_ids, elements,
+                        coords, box)
+
+
+def _format_atom_line(i, name, resname, chain, resid, x, y, z, element):
+    # PDB atom-name column rules: 4-char field; names <4 chars start at col 14
+    if len(name) >= 4:
+        namef = name[:4]
+    else:
+        namef = " " + name.ljust(3)
+    return (f"ATOM  {i:5d} {namef} {resname[:3].ljust(3)} {(chain or 'A')[:1]}"
+            f"{resid:4d}    {x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00"
+            f"          {element:>2s}\n")
+
+
+def write_pdb(path: str, struct: PDBStructure, coords=None):
+    """Write a single-model PDB; ``coords`` (natoms, 3) in nm overrides."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    xyz = np.asarray(coords if coords is not None else struct.coords) * 10.0
+    with open(path, "w") as f:
+        if struct.box is not None:
+            b = struct.box * 10.0
+            f.write(f"CRYST1{b[0]:9.3f}{b[1]:9.3f}{b[2]:9.3f}"
+                    f"  90.00  90.00  90.00 P 1           1\n")
+        for i in range(struct.natoms):
+            f.write(_format_atom_line(
+                i + 1, struct.atom_names[i], struct.res_names[i],
+                struct.chain_ids[i], struct.res_ids[i],
+                xyz[i, 0], xyz[i, 1], xyz[i, 2], struct.elements[i]))
+        f.write("END\n")

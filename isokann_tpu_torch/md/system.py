@@ -3,7 +3,9 @@
 Counterpart of ``isokann_tpu/md/system.py`` for the methods that
 ``method="auto"`` picks for a small vacuum system: NoCutoff,
 CutoffNonPeriodic and CutoffPeriodic (reaction field; minimum image when
-periodic).  The reference's dense incidence matrices were a TPU device
+periodic), and for OBC2 implicit solvent (``implicit="obc2"``, which
+forces NoCutoff, with the reference's element-based Born radii and
+scale factors).  The reference's dense incidence matrices were a TPU device
 (difference vectors as matmuls); the port gathers by index instead, so it
 keeps only the index tables.  Units follow OpenMM: nm, kJ/mol, ps, amu,
 elementary charges.
@@ -49,6 +51,8 @@ class MDSystem:
     qq_scale: torch.Tensor      # (n, n) Coulomb pair scale (0 excl, 1-4, 1)
     lj_scale: torch.Tensor      # (n, n)
     masses: torch.Tensor        # (n,) amu
+    gb_radii: Optional[torch.Tensor] = None   # (n,) intrinsic Born radii
+    gb_scales: Optional[torch.Tensor] = None  # (n,) OBC scale factors
     method: str = "CutoffPeriodic"
     cutoff: float = 1.0         # nm
     eps_rf: float = 78.5        # reaction-field dielectric
@@ -56,6 +60,7 @@ class MDSystem:
     use_dispersion: bool = False
     disp_c6sum: float = 0.0     # sum_ij 2 eps_ij rmin_ij^6  [kJ/mol nm^6]
     disp_c12sum: float = 0.0    # sum_ij  eps_ij rmin_ij^12  [kJ/mol nm^12]
+    implicit: Optional[str] = None   # None or "obc2"
 
     @property
     def natoms(self):
@@ -97,6 +102,32 @@ def _exclusion_scales(top: Topology, scee: float, scnb: float):
     return qq, lj
 
 
+# OBC2 intrinsic radii [nm] and scale factors by element (OpenMM defaults)
+_GB_RADII = {"H": 0.12, "C": 0.17, "N": 0.155, "O": 0.15, "F": 0.15,
+             "P": 0.185, "S": 0.18}
+_GB_SCALES = {"H": 0.85, "C": 0.72, "N": 0.79, "O": 0.85, "F": 0.88,
+              "P": 0.86, "S": 0.96}
+
+
+def _gb_params(top: Topology):
+    """Per-atom OBC2 (radius, scale) by element; mbondi-style 0.13 nm for
+    a hydrogen bonded to a nitrogen."""
+    radii = np.empty(top.natoms)
+    scales = np.empty(top.natoms)
+    adj = top.neighbors()
+    for i, t in enumerate(top.atom_types):
+        el = "H" if t.startswith("H") else t[0]
+        r = _GB_RADII.get(el, 0.15)
+        if el == "H":
+            for j in adj[i]:
+                if top.atom_types[j].startswith("N"):
+                    r = 0.13
+                    break
+        radii[i] = r
+        scales[i] = _GB_SCALES.get(el, 0.8)
+    return radii, scales
+
+
 def _dispersion_sums(rmin_half, eps):
     """(S6, S12) over all ordered atom pairs for the isotropic LJ tail
     correction (OpenMM's homogeneous-fluid approximation)."""
@@ -111,12 +142,15 @@ def _dispersion_sums(rmin_half, eps):
 
 
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
-                 eps_rf: float = 78.5, dispersion_correction: bool = True,
+                 eps_rf: float = 78.5, implicit: Optional[str] = None,
+                 dispersion_correction: bool = True,
                  device="cpu") -> MDSystem:
     """MDSystem from a PDB path / PDBStructure / Topology.
 
     ``method="auto"`` picks CutoffPeriodic when the PDB has a box and
-    CutoffNonPeriodic otherwise, as the reference does."""
+    CutoffNonPeriodic otherwise, as the reference does.
+    ``implicit="obc2"`` adds OBC2 GBSA implicit solvent and forces
+    NoCutoff."""
     box = None
     if isinstance(source, str):
         struct = read_pdb(source)
@@ -128,6 +162,11 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     else:
         top = source
 
+    if implicit not in (None, "obc2"):
+        raise NotImplementedError(f"implicit solvent {implicit!r} is not "
+                                  f"ported; supported: 'obc2'")
+    if implicit is not None:
+        method = "NoCutoff"
     if method == "auto":
         method = "CutoffPeriodic" if box is not None else "CutoffNonPeriodic"
     if method not in METHODS:
@@ -178,6 +217,8 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
                     and method == "CutoffPeriodic")
     s6, s12 = _dispersion_sums(rmin_half, eps) if use_disp else (0.0, 0.0)
     qq, lj = _exclusion_scales(top, amber.SCEE, amber.SCNB)
+    gb_radii, gb_scales = (_gb_params(top) if implicit
+                           else (np.zeros(0), np.zeros(0)))
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float64),
@@ -195,7 +236,9 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
         dih_phase=f32(dih_phase), dih_n=f32(dih_n),
         charges=f32(top.charges), rmin_half=f32(rmin_half), eps=f32(eps),
         qq_scale=f32(qq), lj_scale=f32(lj), masses=f32(top.masses),
+        gb_radii=f32(gb_radii), gb_scales=f32(gb_scales),
         method=method, cutoff=float(cutoff), eps_rf=float(eps_rf),
         box=tuple(float(b) for b in box) if box is not None else None,
         use_dispersion=use_disp, disp_c6sum=s6, disp_c12sum=s12,
+        implicit=implicit,
     )

@@ -1,6 +1,6 @@
 """Pairwise-distance featurisation; counterpart of the Gram-matrix path of
-``isokann_tpu/ops/pairdists.py`` (the fused kernel there served >= 512
-atoms on the TPU and is not ported yet)."""
+``isokann_tpu/ops/pairdists.py`` and of its ``pdists`` (the fused kernel
+there served >= 512 atoms on the TPU and is not ported yet)."""
 
 from __future__ import annotations
 
@@ -24,3 +24,14 @@ def flatpairdists(x):
     i, j = torch.triu_indices(n, n, offset=1, device=x.device)
     p = sqpairdist(b)[:, i, j]
     return torch.sqrt(torch.clamp(p, min=0.0)).reshape(batch + (len(i),))
+
+
+def pdists(x, pairs):
+    """Distances of an explicit list of atom pairs by direct differences:
+    (..., 3N), pairs (m, 2) of 0-based indices -> (..., m)."""
+    batch = x.shape[:-1]
+    b = x.reshape(-1, x.shape[-1] // 3, 3)
+    pairs = torch.as_tensor(pairs, dtype=torch.long, device=x.device)
+    d = b[:, pairs[:, 0], :] - b[:, pairs[:, 1], :]
+    D = torch.sqrt(torch.clamp(torch.sum(d * d, dim=-1), min=1e-24))
+    return D.reshape(batch + (pairs.shape[0],))

@@ -1,6 +1,10 @@
-"""KDE gap-filling resampling on the host (numpy); counterpart of
-``ASH``, ``resample_kde_ash`` and ``kde_interior`` in
-``isokann_tpu/sample.py`` (reference ``src/utils/subsample.jl:127-177``).
+"""Adaptive-sampling primitives on the host (numpy); counterpart of
+``subsample_uniformgrid``, ``pickclosest``, ``ASH``, ``resample_kde_ash``
+and ``kde_interior`` in ``isokann_tpu/sample.py`` (reference
+``src/utils/subsample.jl:5-177``).
+
+``pickclosest`` runs the reference's sorted sweep in Python; the JAX
+package runs the same sweep in its native helper when that is built.
 
 The greedy pick loop evaluates the density at each candidate's bin by the
 truncated triangular-kernel sum, accumulated bin by bin in ascending
@@ -12,6 +16,64 @@ the same indices from the same chi values.
 from __future__ import annotations
 
 import numpy as np
+
+
+def subsample_uniformgrid(ys, n, keepedges=True, rng=None):
+    """Indices such that ``ys[inds]`` approximates a uniform distribution
+    on [0, 1]: the points closest to a randomly perturbed uniform grid
+    (``rng``: a ``np.random.Generator``)."""
+    rng = np.random.default_rng() if rng is None else rng
+    ys = np.asarray(ys).ravel()
+    if n <= 2:
+        keepedges = False
+    m = n - 2 if keepedges else n
+    needles = (rng.random(m) + np.arange(m)) / m
+    if keepedges:
+        needles = np.concatenate([[0.0], needles, [1.0]])
+    return pickclosest(ys, needles)
+
+
+def pickclosest(haystack, needles):
+    """Indices into ``haystack`` closest to ``needles``, without
+    duplicates (a candidate is removed once matched); a sorted sweep."""
+    hs = np.asarray(haystack, dtype=np.float64).ravel()
+    ns = np.asarray(needles, dtype=np.float64).ravel()
+    ih = np.argsort(hs, kind="stable")
+    rs = _pickclosest_sorted(hs[ih], np.sort(ns))
+    return ih[rs]
+
+
+def _pickclosest_sorted(hs: np.ndarray, ns: np.ndarray):
+    """Linear sweep over the sorted haystack and needles (reference
+    ``_pickclosestloop``, ``src/utils/subsample.jl:52-76``)."""
+    nh = len(hs)
+    avail = np.ones(nh, dtype=bool)
+    rs = []
+    i = 0
+    for needle in ns:
+        di = abs(hs[i] - needle)
+        while True:
+            j = i + 1
+            while j < nh and not avail[j]:
+                j += 1
+            if j < nh and abs(hs[j] - needle) <= di:
+                di = abs(hs[j] - needle)
+                i = j
+            else:
+                rs.append(i)
+                avail[i] = False
+                # step back to the previous available candidate
+                k = i - 1
+                while k >= 0 and not avail[k]:
+                    k -= 1
+                i = k
+                break
+        if i < 0:
+            nxt = np.flatnonzero(avail)
+            if len(nxt) == 0:
+                break
+            i = int(nxt[0])
+    return np.asarray(rs, dtype=int)
 
 
 class ASH:

@@ -1,25 +1,39 @@
-"""MDSimulation: molecular dynamics of a small vacuum system on one GPU.
+"""MDSimulation: molecular dynamics of a peptide on one GPU.
 
-Counterpart of ``isokann_tpu/simulators/mdsim.py`` for the plain
-LangevinMiddle path.  Defaults mirror the reference: 310 K, friction 1/ps,
-2 fs steps, 100 steps per Koopman lag, auto cutoff method, the bundled
-alanine dipeptide.
+Counterpart of ``isokann_tpu/simulators/mdsim.py``.  Defaults mirror the
+reference: 310 K, friction 1/ps, 2 fs steps, 100 steps per Koopman lag,
+auto cutoff method, the bundled alanine dipeptide.
 
-Every unbiased propagation goes through
-``md.langevin_kernel.langevin_middle``: on the card that is the
-hand-written CUDA kernel (any batch size, B = 1 included), on the CPU its
-plain PyTorch version.  On the card the kernel takes systems of up to 64
-atoms and raises for larger ones.
+Unbiased LangevinMiddle propagation takes one of three force routes, as
+the reference's ``_force_fn`` / ``_pallas_eligible`` /
+``_nb_kernel_eligible`` choose on a TPU (read "TPU" as "CUDA"):
+
+- ``"fused"``: at most 64 atoms in vacuum.  Whole trajectories in
+  ``md.langevin_kernel.langevin_middle`` (kernel A; any batch size).
+- ``"hybrid"``: 64 < atoms <= 640 with a non-periodic method (OBC2
+  implicit solvent or vacuum reaction field).  The plain LangevinMiddle
+  recursion (``md.integrators.langevin_middle``) over
+  ``md.gb_kernel.force_flat_hybrid``: kernel D for the nonbonded + GBSA
+  forces at every step, bonded forces by autograd.
+- ``"plain"``: at most 64 atoms with OBC2.  The recursion over autograd
+  ``force_flat``, as the reference runs it on a TPU (no kernel there).
+
+Any other system raises ``NotImplementedError`` on the card.  On the CPU
+every route runs, each wrapper taking its kernel's plain version (and
+``force_flat`` serving the systems the card does not take).  On the card
+the recursion draws each step's noise from a CUDA ``torch.Generator``
+seeded from the caller's generator.
 
 With a ``bias`` (``md.integrators.optcontrol``), ``propagate`` runs
 Girsanov-weighted ABOBA and returns ``WeightedSamples``: on the card
 through ``md.girsanov_kernel.aboba_girsanov`` (the hand-written kernel,
-any batch size) when the bias's chi model is one the kernel takes, and
-raising otherwise; on the CPU through the plain recursion
-``md.integrators.aboba_girsanov`` with the bias callable.  As in the
-reference, biased walkers that diverge are not retried.
+any batch size) when the system takes the fused route and the bias's chi
+model is one the kernel takes, and raising otherwise; on the CPU through
+the plain recursion ``md.integrators.aboba_girsanov`` with the bias
+callable.  As in the reference, biased walkers that diverge are not
+retried.
 
-GBSA, constraints, virtual sites, Ewald, a biased ``trajectory`` and the
+Constraints, virtual sites, Ewald, a biased ``trajectory`` and the
 Brownian integrator are not ported.
 """
 
@@ -29,9 +43,11 @@ import warnings
 
 import torch
 
-from .._device import make_generator, resolve_device
+from .._device import draw_seed, make_generator, resolve_device
 from ..data import WeightedSamples
 from ..features import FeaturesAll, default_featurizer
+from ..md import forces as F
+from ..md import gb_kernel as GB
 from ..md import girsanov_kernel as GK
 from ..md import integrators as I
 from ..md import langevin_kernel as LK
@@ -40,15 +56,30 @@ from ..md.system import build_system
 from .base import IsoSimulation
 
 
+def force_route(system) -> str:
+    """The force route of ``system``: "fused" (kernel A), "hybrid"
+    (kernel D + autograd bonded terms), "plain" (autograd ``force_flat``,
+    no kernel) or "unported" (no route on the card)."""
+    n = system.natoms
+    if n <= LK.MAX_ATOMS:
+        return "fused" if system.implicit is None else "plain"
+    if n <= GB.MAX_ATOMS and system.method != "CutoffPeriodic":
+        return "hybrid"
+    return "unported"
+
+
 class MDSimulation(IsoSimulation):
     """Batched molecular dynamics with the reference's interface.
 
     - pdb: path to a PDB file (default: bundled alanine dipeptide)
     - steps: integrator steps per Koopman lag
     - temp [K], friction [1/ps], step [ps]
-    - features: None (all pairs under 100 atoms) or a callable
+    - features: None (all pairs under 100 atoms, else 100 random pairs),
+      a pair list or a callable
     - method/cutoff: nonbonded method ("auto": CutoffPeriodic with a box,
       CutoffNonPeriodic without)
+    - implicit: None or "obc2" (OBC2 GBSA implicit solvent; forces
+      NoCutoff)
     - bias: optional ``bias(x, t, sigma, F) -> u`` (sigma-scaled), e.g.
       ``optcontrol(iso)``: ``propagate`` then returns Girsanov-weighted
       ``WeightedSamples``
@@ -57,8 +88,8 @@ class MDSimulation(IsoSimulation):
 
     def __init__(self, pdb=None, steps: int = 100, temp: float = 310.0,
                  friction: float = 1.0, step: float = 0.002, features=None,
-                 method: str = "auto", cutoff: float = 1.0, bias=None,
-                 device=None):
+                 method: str = "auto", cutoff: float = 1.0, implicit=None,
+                 bias=None, device=None):
         self.device = resolve_device(device)
         self.bias = bias
         if pdb is None:
@@ -71,10 +102,15 @@ class MDSimulation(IsoSimulation):
         self.step = float(step)
         self.structure = read_pdb(pdb)
         self.system = build_system(pdb, method=method, cutoff=cutoff,
-                                   device=self.device)
+                                   implicit=implicit, device=self.device)
         self.masses3 = torch.repeat_interleave(self.system.masses, 3)
-        self.plan = LK.LangevinPlan(self.system, self.temp, self.friction,
-                                    self.step)
+        self.route = force_route(self.system)
+        self.plan = (LK.LangevinPlan(self.system, self.temp, self.friction,
+                                     self.step)
+                     if self.route == "fused" else None)
+        self.gbplan = (GB.GBPlan(self.system) if self.route == "hybrid"
+                       else None)
+        self.retries = 0
         self._x0 = torch.as_tensor(self.structure.coords.reshape(-1),
                                    dtype=torch.float32, device=self.device)
         self.featurizer = default_featurizer(self.natoms, features)
@@ -108,10 +144,46 @@ class MDSimulation(IsoSimulation):
 
     # ---- propagation -------------------------------------------------------
 
+    def _check_route(self, device):
+        """An "unported" system runs only on the CPU."""
+        if self.route == "unported" and device.type != "cpu":
+            raise NotImplementedError(
+                f"no {device.type} path for {self.natoms} atoms with "
+                f"{self.system.method}: the card runs langevin_middle "
+                f"(<= {LK.MAX_ATOMS} atoms in vacuum) and gb_force ("
+                f"{LK.MAX_ATOMS} < atoms <= {GB.MAX_ATOMS}, non-periodic); "
+                f"larger or periodic systems need sqpairdist_fused and "
+                f"neighbor_sweep_pallas, not ported")
+
+    def force(self, x):
+        """Forces (B, 3N) -> (B, 3N) by the system's route."""
+        if self.route == "fused":
+            return LK.forces(self.plan, x)
+        if self.route == "hybrid":
+            return GB.force_flat_hybrid(self.gbplan, x)
+        self._check_route(x.device)
+        return F.force_flat(self.system, x)
+
+    def _noise(self, gen, device):
+        """The generator of the recursion's per-step noise: ``gen`` on
+        the CPU, on the card a CUDA generator seeded from ``gen``; None
+        (no noise) for ``gen=None``."""
+        if gen is None or device.type == "cpu":
+            return gen
+        g = torch.Generator(device=device)
+        g.manual_seed(draw_seed(gen))
+        return g
+
     def _integrate(self, x, v, nsteps, gen):
-        """LangevinMiddle for (B, 3N) walkers: the kernel on the card, its
-        plain version on the CPU."""
-        return LK.langevin_middle(self.plan, x, v, nsteps, gen)
+        """LangevinMiddle for (B, 3N) walkers: kernel A's whole
+        trajectories on the fused route (its plain version on the CPU),
+        else the recursion over ``self.force``."""
+        if self.route == "fused":
+            return LK.langevin_middle(self.plan, x, v, nsteps, gen)
+        self._check_route(x.device)
+        return I.langevin_middle(self.force, x, v, self.masses3, self.temp,
+                                 self.friction, self.step, nsteps,
+                                 self._noise(gen, x.device))
 
     def _run(self, xs, nsteps, gen):
         v0 = self.random_velocities(gen, xs.shape)
@@ -125,15 +197,16 @@ class MDSimulation(IsoSimulation):
         spec = getattr(self.bias, "optcontrol_spec", None)
         if xs.device.type == "cpu":
             q, _, logw = I.aboba_girsanov(
-                lambda z: LK.forces(self.plan, z), self.bias, xs, p0,
+                self.force, self.bias, xs, p0,
                 self.masses3, self.temp, self.friction, self.step, nsteps,
                 gen)
             return q, logw
         if spec is None or not self.kernel_takes_bias():
             raise NotImplementedError(
-                f"no Girsanov kernel on {xs.device} for this bias: the "
-                f"card takes optcontrol biases over FeaturesAll with a "
-                f"sigmoid / identity MLP chi model")
+                f"no Girsanov kernel on {xs.device} for this bias or "
+                f"system: the card takes optcontrol biases over FeaturesAll "
+                f"with a sigmoid / identity MLP chi model, for at most "
+                f"{LK.MAX_ATOMS} atoms in vacuum")
         plan = GK.GirsanovPlan.for_model(self.plan, spec["model"],
                                          spec["forcescale"])
         q, _, logw = GK.aboba_girsanov(
@@ -145,18 +218,18 @@ class MDSimulation(IsoSimulation):
         """Whether the Girsanov kernel computes ``self.bias``: an
         ``optcontrol`` bias over ``FeaturesAll`` whose chi model is a
         sigmoid / identity MLP over all pair distances (any LayerNorm),
-        for a system of at most 64 atoms."""
+        for a system on the fused route (at most 64 atoms in vacuum)."""
         spec = getattr(self.bias, "optcontrol_spec", None)
-        return (spec is not None
+        return (spec is not None and self.route == "fused"
                 and isinstance(spec["featurizer"], FeaturesAll)
-                and GK.takes_model(spec["model"], self.plan.np)
-                and self.natoms <= LK.MAX_ATOMS)
+                and GK.takes_model(spec["model"], self.plan.np))
 
     def propagate(self, x0, nk, gen=None, steps=None):
         """(n, 3N) -> (n, nk, 3N) Koopman bursts: all n*nk walkers in one
         launch.  The walker count is padded to a power of two (>= 8), as
         in the reference; walkers that diverge are retried up to three
-        times with fresh noise, then fall back to their start state.
+        times with fresh noise (``self.retries`` counts these reruns of
+        the whole batch), then fall back to their start state.
 
         With a bias: ``WeightedSamples`` of the bursts (n, nk, 3N) and
         their Girsanov weights exp(logw) (n, nk), from momenta drawn from
@@ -180,6 +253,7 @@ class MDSimulation(IsoSimulation):
             bad = ~torch.isfinite(ys).all(dim=-1)
             if not bool(bad.any()):
                 break
+            self.retries += 1
             retry = self._run(xs, nsteps, gen)[:nw]
             ys = torch.where(bad[:, None], retry, ys)
         bad = ~torch.isfinite(ys).all(dim=-1)
@@ -234,5 +308,7 @@ class MDSimulation(IsoSimulation):
     def __repr__(self):
         return (f"MDSimulation({self.natoms} atoms, steps={self.steps}, "
                 f"temp={self.temp}K, friction={self.friction}/ps, "
-                f"dt={self.step}ps, {self.system.method}, {self.device})")
+                f"dt={self.step}ps, {self.system.method}, "
+                f"implicit={self.system.implicit}, {self.route}, "
+                f"{self.device})")
 

@@ -24,20 +24,30 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
 
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither jax, optax nor the JAX package."""
+    neither jax, optax nor the JAX package; the walk covers the modules of
+    every slice so far."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import isokann_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'isokann_tpu'))\n"
-        "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+        "print(' '.join(names))\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     root = __file__.rsplit("/tests/", 1)[0]
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+    walked = set(out.stdout.split("\n")[0].split())
+    assert {f"isokann_tpu_torch.{m}" for m in (
+        "md.gb_kernel", "md.minimize", "md.fixtures", "md.amber",
+        "md.topology", "md.langevin_kernel", "md.girsanov_kernel",
+        "features", "sample", "data", "iso",
+        "simulators.mdsim")} <= walked, out.stdout
 
 
 def test_propagate_and_randx0_shapes():
