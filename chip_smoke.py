@@ -24,10 +24,21 @@ port's entry points:
   implicit="obc2")``, ``Iso(nx=100, nk=8)`` over 100 random-pair
   features, 2 generations of ``run(300)`` + ``resample_strat(3)`` + the
   2000-point cutoff, then chis/koopman/rates: the nonbonded + GBSA force
-  kernel at every MD step (randx0's 10,000 single-walker steps, 1024
+  kernel at every MD step (randx0's 1,000 single-walker steps, 128
   walkers x 100 steps in propagate, 32 x 100 per generation).
 
-It times the three kernels.  Each phase prints one line; any failed check
+- the reference's explicit-solvent configuration
+  (``examples/solvated_peptide.py``, full variant): ``peptide_pdb``
+  builds AQGSAELAKVM and minimizes it (300 FIRE steps),
+  ``MDSimulation(addwater=True, padding=1.0, steps=100)`` puts it in a
+  TIP3P box (7,744 atoms, 2,526 rigid waters, reaction field under
+  minimum image), 4 walkers equilibrate for 200 steps, then randx0(16)
+  (1,600 single-walker steps from the equilibrated frame), propagate of
+  64 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
+  features, chis/koopman/rates: the cell-list pair-sweep kernel at every
+  constrained MD step.
+
+It times the four kernels.  Each phase prints one line; any failed check
 exits non-zero.  The last two lines are a JSON list of the kernels
 (launches on their path, error against the plain version, times, bound)
 and ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2
@@ -43,6 +54,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
+TB, TSTEPS = 4, 40     # solvated temperature witness: walkers, steps
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -81,6 +93,20 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """``fn()`` once and its device time in ms, by CUDA events, without a
+    warm-up call (for the plain versions, already run)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def main():
     watchdog()
     import numpy as np
@@ -96,6 +122,8 @@ def main():
     from isokann_tpu_torch.md import girsanov_kernel as GK
     from isokann_tpu_torch.md import integrators as I
     from isokann_tpu_torch.md import langevin_kernel as LK
+    from isokann_tpu_torch.md import neighbor as NB
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
     from isokann_tpu_torch.md.integrators import KB
     dev = torch.device("cuda")
 
@@ -112,11 +140,26 @@ def main():
                         f"CUDA {torch.version.cuda}")
 
     # ---- 2. build: one nvcc per source, all started together ---------------
+    # While nvcc runs, the two peptides of phases 9 and 12 are built and
+    # minimized (FIRE over autograd: no hand-written kernel); their seconds
+    # are reported in those phases.
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for job in [pool.submit(k.lib) for k in (LK.langevin_middle,
-                                                 GK.aboba_girsanov,
-                                                 GB.gb_force)]:
+    pdb = os.path.join(ROOT, "build", "chip_smoke", "trpcage.pdb")
+    spdb = os.path.join(ROOT, "build", "chip_smoke", "solvated_peptide.pdb")
+    with ThreadPoolExecutor(4) as pool:
+        jobs = [pool.submit(k.lib) for k in (LK.langevin_middle,
+                                             GK.aboba_girsanov, GB.gb_force,
+                                             NBK.neighbor_sweep)]
+        t1 = time.perf_counter()
+        peptide_pdb("NLYIQWLKDGGPSSGRPPPS", pdb, minimize=True,
+                    maxiter=1500, implicit="obc2")
+        torch.cuda.synchronize()
+        t_min = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        peptide_pdb("AQGSAELAKVM", spdb, minimize=True, maxiter=300)
+        torch.cuda.synchronize()
+        ts_pep = time.perf_counter() - t1
+        for job in jobs:
             job.result()
     LK.forces.lib()
     GK.chi_grad.lib()
@@ -132,7 +175,9 @@ def main():
                        f"{LK.langevin_middle.build_seconds:.2f}s, "
                        f"aboba_girsanov "
                        f"{GK.aboba_girsanov.build_seconds:.2f}s, gb_force "
-                       f"{GB.gb_force.build_seconds:.2f}s (parallel)")
+                       f"{GB.gb_force.build_seconds:.2f}s, neighbor_sweep "
+                       f"{NBK.neighbor_sweep.build_seconds:.2f}s (parallel), "
+                       f"peptides {t_min:.2f}s + {ts_pep:.2f}s meanwhile")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -422,19 +467,14 @@ def main():
     # ---- 9. trp-cage path ----------------------------------------------------
     # tools/run_trpcage_production.py at its production widths: TC5B built
     # from sequence and minimized in OBC2 (1500 FIRE steps), a 100-step lag,
-    # nx=100 x nk=8, 300 iterations and 3 stratified resamples a
-    # generation, cutoff 2000; only the number of generations is cut.
+    # nk=8, 300 iterations and 3 stratified resamples a generation, cutoff
+    # 2000; the number of generations is cut to 2 and nx from 100 to 10
+    # (randx0's single-walker steps were a third of the run's time).
     t0 = time.perf_counter()
     GB.gb_force.launches = 0
     LK.langevin_middle.launches = 0
     GK.aboba_girsanov.launches = 0
-    GENS, ITERS, RESAMPLES, CUTOFF, TNX, TNK = 2, 300, 3, 2000, 100, 8
-    pdb = os.path.join(ROOT, "build", "chip_smoke", "trpcage.pdb")
-    t1 = time.perf_counter()
-    peptide_pdb("NLYIQWLKDGGPSSGRPPPS", pdb, minimize=True, maxiter=1500,
-                implicit="obc2")
-    torch.cuda.synchronize()
-    t_min = time.perf_counter() - t1
+    GENS, ITERS, RESAMPLES, CUTOFF, TNX, TNK = 2, 300, 3, 2000, 10, 8
     t1 = time.perf_counter()
     tsim = itt.MDSimulation(pdb=pdb, steps=100, implicit="obc2")
     tgen = itt.make_generator(30)
@@ -558,7 +598,8 @@ def main():
     def plain_force(x):
         return F.force_flat(tsim.system, x)
 
-    xg = tiso.data.coords[:64].repeat(4, 1).contiguous()     # 256 walkers
+    reps = -(-256 // len(tiso.data))
+    xg = tiso.data.coords.repeat(reps, 1)[:256].contiguous()  # 256 walkers
     vg = tsim.random_velocities(itt.make_generator(41), xg.shape)
     xh, vh = tsim._integrate(xg, vg, 10, None)
     xp, vp = I.langevin_middle(plain_force, xg, vg, tsim.masses3, tsim.temp,
@@ -596,18 +637,7 @@ def main():
           f"1%)")
     require(abs(temp_h - temp_p) / temp_p < 0.01,
             "hybrid and plain paths at the same temperature")
-    # a second witness: the hybrid path at half the step over the same
-    # 2 ps (2000 steps of 1 fs, read over the same 1-2 ps window)
-    g1 = itt.make_generator(43)
-    t1 = time.perf_counter()
-    temp_h1 = kinetic_temperature(lambda x, v: I.langevin_middle(
-        tsim.force, x, v, tsim.masses3, tsim.temp, tsim.friction,
-        tsim.step / 2, 200, tsim._noise(g1, dev)))
-    t_th1 = time.perf_counter() - t1
-    print(f"  kinetic temperature B=256, 1-2 ps: hybrid at 2 fs {temp_h:.2f}"
-          f" K, at 1 fs {temp_h1:.2f} K ({t_th1:.1f}s); excess over 310 K "
-          f"{temp_h / 310.0 - 1:.2%} and {temp_h1 / 310.0 - 1:.2%}")
-    # two more witnesses at 2 fs: trp-cage without GB (vacuum NoCutoff, a
+    # two witnesses at 2 fs: trp-cage without GB (vacuum NoCutoff, a
     # smooth potential) on the same start, and alanine through the plain
     # recursion of the hybrid route (with the forces entry of kernel A's
     # module, held to its plain version in phase 3) on the start and for
@@ -658,6 +688,211 @@ def main():
           f"bonded autograd B=1: {bonded_ms:.4f} ms {stamp}")
     phase("gb_timing", t0)
 
+    # ---- 12. solvated path --------------------------------------------------
+    # examples/solvated_peptide.py's full variant at its widths: the
+    # 11-residue peptide in a TIP3P box with 1 nm padding, rigid water, a
+    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 16.
+    t0 = time.perf_counter()
+    NXS, NKS, ITS, EQS, EQW = 16, 4, 200, 200, 4
+    t1 = time.perf_counter()
+    ssim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100)
+    ts_build = time.perf_counter() - t1
+    cset, splan = ssim.constraint_set, ssim.nbplan
+    print(f"  solvated peptide: {ssim.natoms} atoms, {cset.nwater} rigid "
+          f"waters, box {ssim.system.box} nm, cutoff {ssim.system.cutoff} "
+          f"nm, {ssim.system.excl_idx.shape[0]} exceptions; plan grid "
+          f"{tuple(int(c) for c in splan.nc)}, capacity {splan.C}, "
+          f"{splan.full.shape[1]} stencil cells, Newton "
+          f"{splan.newton}; {len(ssim.featurizer.pairs)} solute-pair "
+          f"features")
+    require(ssim.natoms == 7744 and ssim.route == "neighbor"
+            and cset.nwater == 2526 and not ssim.system.dense_pairs,
+            "7,744 atoms with 2,526 rigid waters on the neighbor route")
+    for k in (NBK.neighbor_sweep, LK.langevin_middle, LK.forces,
+              GK.aboba_girsanov, GB.gb_force):
+        k.launches = 0
+    sgen = itt.make_generator(50)
+    r0 = ssim.retries
+    t1 = time.perf_counter()
+    eq = ssim.propagate(ssim.coords[None].repeat(EQW, 1), 1, gen=sgen,
+                        steps=EQS)
+    torch.cuda.synchronize()
+    ts_eq = time.perf_counter() - t1
+    r1 = ssim.retries
+    require(bool(torch.isfinite(eq).all()), "finite equilibration")
+    ssim.setcoords(eq[0, 0])
+    smodel = ssim.defaultmodel(n=len(ssim.featurizer.pairs), gen=sgen)
+    t1 = time.perf_counter()
+    sxs = ssim.randx0(NXS, gen=sgen)
+    torch.cuda.synchronize()
+    ts_x0 = time.perf_counter() - t1
+    n_sx0 = NBK.neighbor_sweep.launches - EQS * (1 + r1 - r0)
+    t1 = time.perf_counter()
+    sy = ssim.propagate(sxs, NKS, gen=sgen)
+    torch.cuda.synchronize()
+    ts_prop = time.perf_counter() - t1
+    r2 = ssim.retries
+    sdata = itt.SimulationData.from_coords(ssim, sxs, sy)
+    siso = itt.Iso(data=sdata, model=smodel, opt=itt.AdamRegularized(),
+                   gen=51)
+    t1 = time.perf_counter()
+    siso.run(ITS)
+    torch.cuda.synchronize()
+    ts_train = time.perf_counter() - t1
+    schi, skchi, sQ = siso.chis(), siso.koopman(), siso.rates()
+    e_launches = NBK.neighbor_sweep.launches
+    want = (EQS * (1 + r1 - r0) + NXS * 100 + 100 * (1 + r2 - r1))
+    viol = max(cset.max_violation(sxs), cset.max_violation(sy))
+    ms_x0 = 1e3 * ts_x0 / (NXS * 100)
+    print(f"  solvated path: peptide_pdb (build + 300 FIRE steps) "
+          f"{ts_pep:.3f}s, MDSimulation (solvate + system + plan) "
+          f"{ts_build:.3f}s, equilibration {EQW}x{EQS} steps {ts_eq:.3f}s, "
+          f"randx0({NXS}) {ts_x0:.3f}s ({ms_x0:.3f} ms/step, {n_sx0} "
+          f"launches), propagate {NXS}x{NKS} {ts_prop:.3f}s, run({ITS}) "
+          f"{ts_train:.3f}s; loss {siso.losses[0]:.4f} -> "
+          f"{siso.losses[-1]:.4f}; retries {r2 - r0}, overflows "
+          f"{ssim.overflows}; constraint violation {viol:.2e} nm; "
+          f"neighbor_sweep launches {e_launches} (expected {want}); rates "
+          f"diag {np.diag(sQ).tolist()} {stamp}")
+    require(e_launches == want, "neighbor_sweep launches = one per MD step")
+    require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
+            and GK.aboba_girsanov.launches == 0
+            and GB.gb_force.launches == 0,
+            "the solvated path runs no other kernel")
+    require(ssim.overflows == 0, "no neighbor-cell overflow")
+    require(viol <= 1e-5, "rigid waters held to 1e-5 nm")
+    require(sdata.propcoords.shape == (NXS, NKS, ssim.dim)
+            and bool(torch.isfinite(sxs).all())
+            and bool(torch.isfinite(sy).all()), "finite solvated frames")
+    sl = np.asarray(siso.losses)
+    require(len(sl) == ITS and np.all(np.isfinite(sl)) and sl[-1] < sl[0],
+            "losses finite and falling")
+    require(schi.shape == (NXS, 1) and bool(torch.isfinite(schi).all())
+            and bool(torch.isfinite(skchi).all()), "chis finite")
+    require(np.all(np.diag(sQ) < 0), "rates() has a negative diagonal")
+    phase("solvated_path", t0, f"randx0 {ts_x0:.3f}s propagate "
+                               f"{ts_prop:.3f}s")
+
+    # ---- 13. neighbor_sweep against plain -----------------------------------
+    t0 = time.perf_counter()
+    xq = sy.reshape(-1, ssim.dim)[:64].contiguous()   # frames of the path
+    nb_err, e_plain = 0.0, {}
+    for label, a in (("RF", None), ("erfc", NB.ewald_alpha(1.0, 5e-4))):
+        for b in ((1, 37, 64) if a is None else (1, 37)):
+            xb = xq[:b].contiguous()
+            f_k = NBK.neighbor_sweep(ssim.system, splan, xb, a)
+            f_p, ms_p = timed(lambda: NBK.neighbor_sweep_plain(
+                ssim.system, splan, xb, a))
+            if a is None:
+                e_plain[b] = ms_p
+            rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+            nb_err = max(nb_err, float((f_k - f_p).abs().max()))
+            print(f"  neighbor_sweep {label} B={b}: max rel err {rel:.3e} "
+                  f"(tol 1e-5), max |F| {float(f_p.abs().max()):.1f}")
+            require(rel < 1e-5, f"neighbor_sweep vs plain, {label}, B={b}")
+    require(torch.equal(NBK.neighbor_sweep(ssim.system, splan, xq),
+                        NBK.neighbor_sweep(ssim.system, splan, xq)),
+            "neighbor_sweep: the same input gives the same bits")
+    asim = itt.MDSimulation(addwater=True, padding=0.9, dense_pairs=False)
+    aplan = asim.nbplan
+    require(asim.route == "neighbor" and not aplan.newton and aplan.S > 0,
+            "solvated alanine: a non-Newton plan")
+    xa = (asim.coords[None] + torch.as_tensor(
+        np.random.default_rng(52).normal(scale=0.003, size=(37, asim.dim)),
+        dtype=torch.float32, device=dev)).contiguous()
+    f_k = NBK.neighbor_sweep(asim.system, aplan, xa)
+    f_p = NBK.neighbor_sweep_plain(asim.system, aplan, xa)
+    rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+    nb_err = max(nb_err, float((f_k - f_p).abs().max()))
+    print(f"  neighbor_sweep solvated alanine ({asim.natoms} atoms, grid "
+          f"{tuple(int(c) for c in aplan.nc)}, non-Newton) B=37: max rel "
+          f"err {rel:.3e} (tol 1e-5)")
+    require(rel < 1e-5, "neighbor_sweep vs plain, non-Newton plan")
+
+    def plain_force(x):
+        return NB.force_flat_neighbor(ssim.system, x, splan,
+                                      sweep=NBK.neighbor_sweep_plain)
+
+    x4 = xq[:4].contiguous()
+    v4 = cset.rattle(x4, ssim.random_velocities(itt.make_generator(53),
+                                                x4.shape))
+    xk, vk = ssim._integrate(x4, v4, 10, None)
+    xp, vp = I.langevin_middle(plain_force, x4, v4, ssim.masses3, ssim.temp,
+                               ssim.friction, ssim.step, 10, None, cset)
+    xrel = float((xk - xp).abs().max() / xp.abs().max())
+    vrel = float((vk - vp).abs().max() / vp.abs().max())
+    print(f"  noiseless constrained x10 steps B=4, kernel vs plain route: "
+          f"rel x {xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
+    require(xrel < 1e-5 and vrel < 1e-4, "noiseless kernel vs plain route")
+
+    # kinetic temperature, 3N - 3 nwater degrees of freedom, of both routes
+    # from one start with one noise stream: the mean over the walkers and
+    # over the last half of the run
+    dof = ssim.dim - 3 * cset.nwater
+    x16 = xq[:TB].contiguous()
+    v16 = cset.rattle(x16, ssim.random_velocities(itt.make_generator(54),
+                                                  x16.shape))
+
+    def temperature(force, gen):
+        x, v, temps = x16, v16, []
+        noise = ssim._noise(gen, dev)
+        for k in range(TSTEPS // 10):
+            x, v = I.langevin_middle(force, x, v, ssim.masses3, ssim.temp,
+                                     ssim.friction, ssim.step, 10, noise,
+                                     cset)
+            if k >= TSTEPS // 20:
+                temps.append(float((ssim.masses3 * v * v).sum(dim=1).mean()
+                                   / (dof * KB)))
+        require(bool(torch.isfinite(x).all()), "finite temperature run")
+        return float(np.mean(temps))
+
+    t1 = time.perf_counter()
+    temp_k = temperature(ssim.force, itt.make_generator(55))
+    t_tk = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    temp_p = temperature(plain_force, itt.make_generator(55))
+    t_tp = time.perf_counter() - t1
+    print(f"  kinetic temperature B={TB}, steps {TSTEPS // 2}-{TSTEPS}, "
+          f"{dof} degrees of freedom: kernel route {temp_k:.2f} K "
+          f"({t_tk:.1f}s), plain route {temp_p:.2f} K ({t_tp:.1f}s), target "
+          f"310 K; |diff| {abs(temp_k - temp_p) / temp_p:.3%} (tol 1%)")
+    require(abs(temp_k - temp_p) / temp_p < 0.01,
+            "kernel and plain routes at the same temperature")
+    phase("neighbor_vs_plain", t0, "RF and erfc at B=1/37/64, same bits, "
+                                   "non-Newton plan, noiseless steps, "
+                                   "temperature")
+
+    # ---- 14. neighbor_sweep timing ------------------------------------------
+    t0 = time.perf_counter()
+    e_ms = {}
+    for b in (1, 64, 256):
+        xb = xq.repeat(-(-b // 64), 1)[:b].contiguous()
+        e_ms[b] = cuda_ms(lambda: NBK.neighbor_sweep(ssim.system, splan, xb),
+                          reps=20 if b == 1 else 3)
+    _, e_plain[16] = timed(lambda: NBK.neighbor_sweep_plain(
+        ssim.system, splan, xq[:16].contiguous()))
+    # the bound from this run's pairs: xq's 64 frames (B = 64, and four
+    # times over at B = 256), its first frame at B = 1
+    nq = xq.shape[0]
+    in_range, visited = NBK.pair_counts(ssim.system, splan, xq)
+    in_1, _ = NBK.pair_counts(ssim.system, splan, xq[:1])
+    e_bms, e_by = NBK.bound_ms(splan, nq, in_range)
+    bounds = {1: NBK.bound_ms(splan, 1, in_1)[0], nq: e_bms,
+              256: NBK.bound_ms(splan, 256, in_range * 256 // nq)[0]}
+    kops, sops = NBK.kernel_ops(in_range, visited), NBK.step_ops(in_range)
+    for b in (1, 64, 256):
+        print(f"  neighbor_sweep B={b}: {e_ms[b]:.4f} ms, bound "
+              f"{bounds[b]:.4f} ms ({e_by}, {bounds[b] / e_ms[b]:.2%} of "
+              f"it) {stamp}")
+    print(f"  neighbor_sweep plain B=1: {e_plain[1]:.3f} ms, B=16: "
+          f"{e_plain[16]:.3f} ms, B=64: {e_plain[64]:.3f} ms; pairs in "
+          f"cutoff {in_range / nq:.0f} a walker (unordered), slot pairs "
+          f"visited {visited / nq:.0f}; operations {sops / nq:.4g} the "
+          f"function needs, {kops / nq:.4g} the kernel executes "
+          f"({kops / sops:.1f}x); share of a randx0 step (B=1) "
+          f"{e_ms[1] / ms_x0:.1%} {stamp}")
+    phase("neighbor_timing", t0)
+
     kernels = [{
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
@@ -678,6 +913,13 @@ def main():
         "replaces": "isokann_tpu/md/pallas_gb.py:501",
         "launches": d_launches, "max_abs_err": gb_err, "ms": d_ms[1024],
         "plain_ms": d_plain[1024], "bound_ms": d_bms, "bound_by": d_by,
+        "library_ms": None,
+    }, {
+        "name": "neighbor_sweep", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
+        "replaces": "isokann_tpu/md/neighbor.py:926",
+        "launches": e_launches, "max_abs_err": nb_err, "ms": e_ms[64],
+        "plain_ms": e_plain[64], "bound_ms": e_bms, "bound_by": e_by,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -4,7 +4,9 @@ Counterpart of ``isokann_tpu/md/forces.py`` for the NoCutoff and
 reaction-field (CutoffNonPeriodic / CutoffPeriodic) methods and OBC2
 implicit solvent (``gbsa_obc2_energy``).  Energies in
 kJ/mol; coordinates (..., natoms, 3) in nm; every term sums over the last
-two axes so batches need no vmap.
+two axes so batches need no vmap.  Systems built with
+``dense_pairs=False`` route through the O(n) cell-list engine
+(``md/neighbor.py``), whose forces are analytic.
 """
 
 from __future__ import annotations
@@ -162,9 +164,16 @@ def bonded_energy(sys: MDSystem, xb):
 
 
 def potential_energy(sys: MDSystem, x):
-    """Total potential; x: (..., natoms, 3) -> (...) kJ/mol."""
+    """Total potential; x: (..., natoms, 3) -> (...) kJ/mol.  A
+    ``dense_pairs=False`` system goes through the neighbor engine, walker
+    by walker."""
     shape = x.shape[:-2]
     xb = x.reshape(-1, sys.natoms, 3)
+    if not sys.dense_pairs:
+        from .neighbor import default_plan, potential_energy_neighbor
+        plan = default_plan(sys, xb[0])
+        return torch.stack([potential_energy_neighbor(sys, xi, plan)
+                            for xi in xb]).reshape(shape)
     e = (bonded_energy(sys, xb) + nonbonded_energy(sys, xb)
          + dispersion_correction_energy(sys))
     if sys.implicit == "obc2":
@@ -186,7 +195,12 @@ def _minus_grad(energy, xflat):
 
 
 def force_flat(sys: MDSystem, xflat):
-    """Batched forces -grad E on flat coords: (..., 3N) -> (..., 3N)."""
+    """Batched forces -grad E on flat coords: (..., 3N) -> (..., 3N); the
+    neighbor engine's analytic forces for a ``dense_pairs=False``
+    system."""
+    if not sys.dense_pairs:
+        from .neighbor import force_flat_neighbor
+        return force_flat_neighbor(sys, xflat)
     return _minus_grad(lambda x: potential_energy_flat(sys, x), xflat)
 
 

@@ -3,9 +3,11 @@
 Counterpart of ``isokann_tpu/md/integrators.py``: ``maxwell_boltzmann``,
 the OpenMM LangevinMiddle scheme, the Girsanov-weighted ABOBA scheme
 (``aboba_girsanov``) over any force and bias function, and the
-chi-derived optimal-control bias (``optcontrol``).  The production paths
-are the hand-written kernels in ``langevin_kernel.py`` and
-``girsanov_kernel.py``; these recursions serve the CPU and the tests.
+chi-derived optimal-control bias (``optcontrol``).  Small vacuum systems
+integrate in the hand-written kernels of ``langevin_kernel.py`` and
+``girsanov_kernel.py``; larger ones run these recursions over a kernel's
+forces, with rigid-water constraints where the system has them
+(``md.constraints``).
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
 explicit ``torch.Generator`` on that generator's device and moved to the
@@ -31,34 +33,73 @@ def maxwell_boltzmann(gen: torch.Generator, masses3, T, shape):
     return z.to(masses3.device) * torch.sqrt(KB * T / masses3)
 
 
-def langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
-                         gen: Optional[torch.Generator] = None):
-    """One LangevinMiddle step: v += dt f/m; x += dt/2 v;
-    v = a v + b sqrt(kBT/m) R; x += dt/2 v, a = exp(-gamma dt),
-    b = sqrt(1 - a^2).  R is drawn on ``gen``'s device; ``gen=None``
-    drops the noise term (R = 0)."""
+def _langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt, gen,
+                          constraints, xlo):
+    """One LangevinMiddle step on (x, v) and the low part ``xlo`` of the
+    positions (constrained runs only, else None); see
+    ``langevin_middle_step``."""
     a = math.exp(-gamma * dt)
     b = math.sqrt(1.0 - a * a)
     h = 0.5 * dt
+
+    def drift(x, xlo, v):
+        if constraints is None:
+            return x + h * v, xlo, v
+        dx = constraints.shake_displacement(x, h * v, xlo)
+        # x + dx as a float pair (Fast2Sum): the rounding of the new
+        # positions stays in xlo, so that the next SHAKE does not take
+        # it for a constraint violation and return it through dx / h
+        # (~5e-4 nm/ps at 5 nm coordinates and a 2 fs step)
+        y = dx + xlo
+        xn = x + y
+        return xn, y - (xn - x), dx / h
+
     v = v + dt * force_fn(x) / masses3
-    x = x + h * v
+    if constraints is not None:
+        v = constraints.rattle(x, v)
+    x, xlo, v = drift(x, xlo, v)
     v = a * v
     if gen is not None:
         z = torch.randn(v.shape, generator=gen, dtype=v.dtype,
                         device=gen.device).to(v.device)
         v = v + b * torch.sqrt(KB * T / masses3) * z
-    x = x + h * v
+    if constraints is not None:
+        v = constraints.rattle(x, v)
+    return drift(x, xlo, v)
+
+
+def langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
+                         gen: Optional[torch.Generator] = None,
+                         constraints=None):
+    """One LangevinMiddle step: v += dt f/m; x += dt/2 v;
+    v = a v + b sqrt(kBT/m) R; x += dt/2 v, a = exp(-gamma dt),
+    b = sqrt(1 - a^2).  R is drawn on ``gen``'s device; ``gen=None``
+    drops the noise term (R = 0).
+
+    With ``constraints`` (a ``md.constraints.ConstraintSet``), OpenMM's
+    constrained variant as the reference runs it: RATTLE after the kick
+    and after the random stage, SHAKE after each half drift with the
+    velocity recovered from the constrained displacement (SHAKE works on
+    the displacement itself, see ``ConstraintSet.shake_displacement``).
+    Within a run of steps (``langevin_middle``) the positions carry
+    their float32 rounding in a second float."""
+    xlo = torch.zeros_like(x) if constraints is not None else None
+    x, _, v = _langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
+                                    gen, constraints, xlo)
     return x, v
 
 
 def langevin_middle(force_fn: Callable, x0, v0, masses3, T, gamma, dt,
-                    nsteps: int, gen: Optional[torch.Generator] = None):
+                    nsteps: int, gen: Optional[torch.Generator] = None,
+                    constraints=None):
     """``nsteps`` LangevinMiddle steps for a batch (B, 3N); returns (x, v).
-    ``gen=None`` runs the noiseless recursion."""
+    ``gen=None`` runs the noiseless recursion; ``constraints`` as in
+    ``langevin_middle_step``."""
     x, v = x0, v0
+    xlo = torch.zeros_like(x0) if constraints is not None else None
     for _ in range(int(nsteps)):
-        x, v = langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
-                                    gen)
+        x, xlo, v = _langevin_middle_step(force_fn, x, v, masses3, T, gamma,
+                                          dt, gen, constraints, xlo)
     return x, v
 
 

@@ -7,8 +7,14 @@ periodic), and for OBC2 implicit solvent (``implicit="obc2"``, which
 forces NoCutoff, with the reference's element-based Born radii and
 scale factors).  The reference's dense incidence matrices were a TPU device
 (difference vectors as matmuls); the port gathers by index instead, so it
-keeps only the index tables.  Units follow OpenMM: nm, kJ/mol, ps, amu,
-elementary charges.
+keeps only the index tables.
+
+Two pair layouts, as in the reference (``dense_pairs``): the dense (n, n)
+Coulomb / LJ scale matrices for the all-pairs force paths, or, above
+``DENSE_PAIRS_MAX`` atoms (or on request), only the sparse exception list
+``excl_idx/excl_qq/excl_lj`` that the O(n) cell-list engine
+(``md/neighbor.py``) reads.  Both carry the exception list.  Units follow
+OpenMM: nm, kJ/mol, ps, amu, elementary charges.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ COULOMB = 138.935456            # kJ mol^-1 nm e^-2  (OpenMM ONE_4PI_EPS0)
 KB = 0.00831446261815324        # kJ/mol/K
 
 METHODS = ("NoCutoff", "CutoffNonPeriodic", "CutoffPeriodic")
+DENSE_PAIRS_MAX = 4000   # above this, build_system(dense_pairs="auto")
+                         # switches to the O(n) neighbor-engine layout
 
 
 @dataclass
@@ -48,8 +56,9 @@ class MDSystem:
     charges: torch.Tensor       # (n,)
     rmin_half: torch.Tensor     # (n,) nm
     eps: torch.Tensor           # (n,) kJ/mol
-    qq_scale: torch.Tensor      # (n, n) Coulomb pair scale (0 excl, 1-4, 1)
-    lj_scale: torch.Tensor      # (n, n)
+    qq_scale: torch.Tensor      # (n, n) Coulomb pair scale (0 excl, 1-4,
+                                # 1); (0, 0) without dense pairs
+    lj_scale: torch.Tensor      # (n, n), or (0, 0)
     masses: torch.Tensor        # (n,) amu
     gb_radii: Optional[torch.Tensor] = None   # (n,) intrinsic Born radii
     gb_scales: Optional[torch.Tensor] = None  # (n,) OBC scale factors
@@ -61,6 +70,10 @@ class MDSystem:
     disp_c6sum: float = 0.0     # sum_ij 2 eps_ij rmin_ij^6  [kJ/mol nm^6]
     disp_c12sum: float = 0.0    # sum_ij  eps_ij rmin_ij^12  [kJ/mol nm^12]
     implicit: Optional[str] = None   # None or "obc2"
+    excl_idx: Optional[torch.Tensor] = None   # (m, 2) int64, i < j
+    excl_qq: Optional[torch.Tensor] = None    # (m,) target Coulomb scale
+    excl_lj: Optional[torch.Tensor] = None    # (m,) target LJ scale
+    dense_pairs: bool = True
 
     @property
     def natoms(self):
@@ -76,6 +89,29 @@ class MDSystem:
 
     def replace(self, **kw) -> "MDSystem":
         return dataclasses.replace(self, **kw)
+
+
+def sparse_exclusions(top: Topology, scee: float, scnb: float):
+    """Sparse exception list: (idx (m, 2) i < j, qq_w (m,), lj_w (m,)) with
+    the target pair scales (0 for 1-2/1-3, scee/scnb for 1-4), sorted by
+    pair.  O(n * degree); a pair that is both 1-4 and 1-2/1-3 takes the
+    stronger exclusion, as in Amber."""
+    adj = top.neighbors()
+    w = {}
+    for (i, j, k, l) in top.propers:
+        if i != l:
+            w[(min(i, l), max(i, l))] = (scee, scnb)
+    for a in range(top.natoms):
+        for b in adj[a]:
+            w[(min(a, b), max(a, b))] = (0.0, 0.0)
+            for c in adj[b]:
+                if c != a:
+                    w[(min(a, c), max(a, c))] = (0.0, 0.0)
+    items = sorted(w.items())
+    idx = np.asarray([p for p, _ in items], np.int64).reshape(-1, 2)
+    qq_w = np.asarray([v[0] for _, v in items], np.float64)
+    lj_w = np.asarray([v[1] for _, v in items], np.float64)
+    return idx, qq_w, lj_w
 
 
 def _exclusion_scales(top: Topology, scee: float, scnb: float):
@@ -143,14 +179,17 @@ def _dispersion_sums(rmin_half, eps):
 
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
                  eps_rf: float = 78.5, implicit: Optional[str] = None,
-                 dispersion_correction: bool = True,
+                 dispersion_correction: bool = True, dense_pairs="auto",
                  device="cpu") -> MDSystem:
     """MDSystem from a PDB path / PDBStructure / Topology.
 
     ``method="auto"`` picks CutoffPeriodic when the PDB has a box and
     CutoffNonPeriodic otherwise, as the reference does.
     ``implicit="obc2"`` adds OBC2 GBSA implicit solvent and forces
-    NoCutoff."""
+    NoCutoff.  ``dense_pairs``: True builds the dense (n, n) scale
+    matrices, False only the sparse exception list (forces then run
+    through the cell-list engine, which needs CutoffPeriodic), "auto"
+    switches at ``DENSE_PAIRS_MAX`` atoms."""
     box = None
     if isinstance(source, str):
         struct = read_pdb(source)
@@ -216,7 +255,11 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     use_disp = bool(dispersion_correction and box is not None
                     and method == "CutoffPeriodic")
     s6, s12 = _dispersion_sums(rmin_half, eps) if use_disp else (0.0, 0.0)
-    qq, lj = _exclusion_scales(top, amber.SCEE, amber.SCNB)
+    if dense_pairs == "auto":
+        dense_pairs = top.natoms <= DENSE_PAIRS_MAX
+    qq, lj = (_exclusion_scales(top, amber.SCEE, amber.SCNB) if dense_pairs
+              else (np.zeros((0, 0)), np.zeros((0, 0))))
+    eidx, eqq, elj = sparse_exclusions(top, amber.SCEE, amber.SCNB)
     gb_radii, gb_scales = (_gb_params(top) if implicit
                            else (np.zeros(0), np.zeros(0)))
 
@@ -240,5 +283,6 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
         method=method, cutoff=float(cutoff), eps_rf=float(eps_rf),
         box=tuple(float(b) for b in box) if box is not None else None,
         use_dispersion=use_disp, disp_c6sum=s6, disp_c12sum=s12,
-        implicit=implicit,
+        implicit=implicit, excl_idx=idx(eidx, 2), excl_qq=f32(eqq),
+        excl_lj=f32(elj), dense_pairs=bool(dense_pairs),
     )

@@ -4,7 +4,7 @@ Counterpart of ``isokann_tpu/simulators/mdsim.py``.  Defaults mirror the
 reference: 310 K, friction 1/ps, 2 fs steps, 100 steps per Koopman lag,
 auto cutoff method, the bundled alanine dipeptide.
 
-Unbiased LangevinMiddle propagation takes one of three force routes, as
+Unbiased LangevinMiddle propagation takes one of four force routes, as
 the reference's ``_force_fn`` / ``_pallas_eligible`` /
 ``_nb_kernel_eligible`` choose on a TPU (read "TPU" as "CUDA"):
 
@@ -15,14 +15,25 @@ the reference's ``_force_fn`` / ``_pallas_eligible`` /
   recursion (``md.integrators.langevin_middle``) over
   ``md.gb_kernel.force_flat_hybrid``: kernel D for the nonbonded + GBSA
   forces at every step, bonded forces by autograd.
-- ``"plain"``: at most 64 atoms with OBC2.  The recursion over autograd
-  ``force_flat``, as the reference runs it on a TPU (no kernel there).
+- ``"neighbor"``: a periodic system built with ``dense_pairs=False``
+  (automatic above ``md.system.DENSE_PAIRS_MAX`` atoms), e.g. a peptide in
+  a TIP3P box (``addwater=True``).  The constrained recursion (rigid
+  water by SHAKE / RATTLE, ``md.constraints``) over
+  ``md.neighbor.force_flat_neighbor``: the cell-list sweep in
+  ``md.neighbor_kernel.neighbor_sweep`` (kernel E) at every step, the 1-4
+  corrections and the sparse bonded forces analytically.  After each
+  propagation a sample of frames is checked for cell overflow; an
+  overflow regrows the plan and warns.
+- ``"plain"``: at most 64 atoms with OBC2, or with constraints.  The
+  recursion over autograd ``force_flat``, as the reference runs it on a
+  TPU (no kernel there).
 
-Any other system raises ``NotImplementedError`` on the card.  On the CPU
-every route runs, each wrapper taking its kernel's plain version (and
-``force_flat`` serving the systems the card does not take).  On the card
-the recursion draws each step's noise from a CUDA ``torch.Generator``
-seeded from the caller's generator.
+Any other system (a dense periodic system above 64 atoms) raises
+``NotImplementedError`` on the card.  On the CPU every route runs, each
+wrapper taking its kernel's plain version (and ``force_flat`` serving the
+systems the card does not take).  On the card the recursion draws each
+step's noise from a CUDA ``torch.Generator`` seeded from the caller's
+generator.
 
 With a ``bias`` (``md.integrators.optcontrol``), ``propagate`` runs
 Girsanov-weighted ABOBA and returns ``WeightedSamples``: on the card
@@ -30,17 +41,18 @@ through ``md.girsanov_kernel.aboba_girsanov`` (the hand-written kernel,
 any batch size) when the system takes the fused route and the bias's chi
 model is one the kernel takes, and raising otherwise; on the CPU through
 the plain recursion ``md.integrators.aboba_girsanov`` with the bias
-callable.  As in the reference, biased walkers that diverge are not
-retried.
+callable (unconstrained systems only).  As in the reference, biased
+walkers that diverge are not retried.
 
-Constraints, virtual sites, Ewald, a biased ``trajectory`` and the
-Brownian integrator are not ported.
+Generic bond constraints (HBonds), virtual sites (TIP4P), Ewald, a biased
+``trajectory`` and the Brownian integrator are not ported.
 """
 
 from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 
 from .._device import draw_seed, make_generator, resolve_device
@@ -51,21 +63,46 @@ from ..md import gb_kernel as GB
 from ..md import girsanov_kernel as GK
 from ..md import integrators as I
 from ..md import langevin_kernel as LK
+from ..md import neighbor as NB
+from ..md.constraints import ConstraintSet
 from ..md.pdbio import read_pdb
+from ..md.solvate import solvate, water_triplets
 from ..md.system import build_system
 from .base import IsoSimulation
 
 
-def force_route(system) -> str:
+def force_route(system, constrained: bool = False) -> str:
     """The force route of ``system``: "fused" (kernel A), "hybrid"
-    (kernel D + autograd bonded terms), "plain" (autograd ``force_flat``,
-    no kernel) or "unported" (no route on the card)."""
+    (kernel D + autograd bonded terms), "neighbor" (kernel E + analytic
+    corrections and bonded terms), "plain" (autograd ``force_flat``, no
+    kernel) or "unported" (no route on the card)."""
     n = system.natoms
+    if not system.dense_pairs:
+        return "neighbor"
     if n <= LK.MAX_ATOMS:
-        return "fused" if system.implicit is None else "plain"
+        return "fused" if system.implicit is None and not constrained \
+            else "plain"
     if n <= GB.MAX_ATOMS and system.method != "CutoffPeriodic":
         return "hybrid"
     return "unported"
+
+
+def solute_pairs(nsolute: int):
+    """The reference's default features of a solvated system: all solute
+    pairs under 100 solute atoms, else 100 drawn uniformly without
+    replacement from the C(nsolute, 2) pairs by ``default_rng(0)``."""
+    if nsolute < 100:
+        return [(i, j) for i in range(nsolute)
+                for j in range(i + 1, nsolute)]
+    rng = np.random.default_rng(0)
+    total = nsolute * (nsolute - 1) // 2
+    ids = rng.choice(total, size=min(100, total), replace=False)
+    ii = (np.floor((1 + np.sqrt(1 + 8 * ids)) / 2)).astype(int)
+    jj = ids - ii * (ii - 1) // 2
+    bad = jj < 0          # float-sqrt one-off correction
+    ii[bad] -= 1
+    jj[bad] = ids[bad] - ii[bad] * (ii[bad] - 1) // 2
+    return [(int(j), int(i)) for i, j in zip(ii, jj)]
 
 
 class MDSimulation(IsoSimulation):
@@ -80,6 +117,14 @@ class MDSimulation(IsoSimulation):
       CutoffNonPeriodic without)
     - implicit: None or "obc2" (OBC2 GBSA implicit solvent; forces
       NoCutoff)
+    - addwater: surround the solute with a TIP3P box (``padding`` nm each
+      side) and neutralising Na+/Cl- (plus ``ionic_strength`` mol/l
+      NaCl); the default features become solute pairs only
+    - rigidwater: constrain the waters (SHAKE / RATTLE); their bond and
+      angle terms are dropped from a sparse system
+    - water_model: "tip3p" (4-site models are not ported)
+    - dense_pairs: True (dense (n, n) pair scales), False (O(n) cell-list
+      engine, the "neighbor" route) or "auto" (switch at 4000 atoms)
     - bias: optional ``bias(x, t, sigma, F) -> u`` (sigma-scaled), e.g.
       ``optcontrol(iso)``: ``propagate`` then returns Girsanov-weighted
       ``WeightedSamples``
@@ -89,9 +134,14 @@ class MDSimulation(IsoSimulation):
     def __init__(self, pdb=None, steps: int = 100, temp: float = 310.0,
                  friction: float = 1.0, step: float = 0.002, features=None,
                  method: str = "auto", cutoff: float = 1.0, implicit=None,
+                 addwater: bool = False, padding: float = 1.0,
+                 ionic_strength: float = 0.0, rigidwater: bool = True,
+                 water_model: str = "tip3p", dense_pairs="auto",
                  bias=None, device=None):
         self.device = resolve_device(device)
         self.bias = bias
+        if addwater and implicit is not None:
+            raise ValueError("addwater and implicit solvent are exclusive")
         if pdb is None:
             from ..md.fixtures import alanine_dipeptide_pdb
             pdb = alanine_dipeptide_pdb()
@@ -101,18 +151,40 @@ class MDSimulation(IsoSimulation):
         self.friction = float(friction)
         self.step = float(step)
         self.structure = read_pdb(pdb)
-        self.system = build_system(pdb, method=method, cutoff=cutoff,
-                                   implicit=implicit, device=self.device)
+        nsolute = self.structure.natoms
+        if addwater:
+            # the solute keeps its atom indices; ions, then waters follow
+            self.structure = solvate(self.structure, padding=padding,
+                                     ionic_strength=ionic_strength,
+                                     model=water_model)
+        self.system = build_system(self.structure, method=method,
+                                   cutoff=cutoff, implicit=implicit,
+                                   dense_pairs=dense_pairs,
+                                   device=self.device)
         self.masses3 = torch.repeat_interleave(self.system.masses, 3)
-        self.route = force_route(self.system)
+        wt = water_triplets(self.structure) if rigidwater else None
+        self.constraint_set = (ConstraintSet(self.system, water=wt)
+                               if wt is not None and len(wt) else None)
+        if self.constraint_set is not None and not self.system.dense_pairs:
+            # the constraints replace the waters' bond and angle terms
+            self.system = NB.strip_rigid_water_bonded(self.system, wt)
+        self.route = force_route(self.system,
+                                 self.constraint_set is not None)
         self.plan = (LK.LangevinPlan(self.system, self.temp, self.friction,
                                      self.step)
                      if self.route == "fused" else None)
         self.gbplan = (GB.GBPlan(self.system) if self.route == "hybrid"
                        else None)
         self.retries = 0
+        self.overflows = 0     # neighbor-cell overflows seen (and regrown)
         self._x0 = torch.as_tensor(self.structure.coords.reshape(-1),
                                    dtype=torch.float32, device=self.device)
+        # capacity from the float32 start coordinates, as the reference
+        self.nbplan = (NB.NeighborPlan(
+            self.system, x0=self._x0.cpu().numpy().reshape(-1, 3))
+            if self.route == "neighbor" else None)
+        if addwater and features is None:
+            features = solute_pairs(nsolute)
         self.featurizer = default_featurizer(self.natoms, features)
 
     # ---- accessors ---------------------------------------------------------
@@ -134,6 +206,12 @@ class MDSimulation(IsoSimulation):
     def coords(self):
         return self._x0
 
+    def setcoords(self, x):
+        """Make ``x`` (3N,) the default start state (of ``trajectory`` and
+        ``randx0``)."""
+        self._x0 = torch.as_tensor(x, dtype=torch.float32,
+                                   device=self.device).reshape(-1)
+
     def defaultmodel(self, n=None, nout=1, gen=None, **kwargs):
         from ..models import autonet
         return autonet(n if n is not None else self.dim, nout=nout, gen=gen,
@@ -149,11 +227,12 @@ class MDSimulation(IsoSimulation):
         if self.route == "unported" and device.type != "cpu":
             raise NotImplementedError(
                 f"no {device.type} path for {self.natoms} atoms with "
-                f"{self.system.method}: the card runs langevin_middle "
-                f"(<= {LK.MAX_ATOMS} atoms in vacuum) and gb_force ("
-                f"{LK.MAX_ATOMS} < atoms <= {GB.MAX_ATOMS}, non-periodic); "
-                f"larger or periodic systems need sqpairdist_fused and "
-                f"neighbor_sweep_pallas, not ported")
+                f"{self.system.method} and dense pairs: the card runs "
+                f"langevin_middle (<= {LK.MAX_ATOMS} atoms in vacuum), "
+                f"gb_force ({LK.MAX_ATOMS} < atoms <= {GB.MAX_ATOMS}, "
+                f"non-periodic) and neighbor_sweep (the port of "
+                f"neighbor_sweep_pallas: periodic, dense_pairs=False); "
+                f"dense periodic systems are not ported")
 
     def force(self, x):
         """Forces (B, 3N) -> (B, 3N) by the system's route."""
@@ -161,6 +240,8 @@ class MDSimulation(IsoSimulation):
             return LK.forces(self.plan, x)
         if self.route == "hybrid":
             return GB.force_flat_hybrid(self.gbplan, x)
+        if self.route == "neighbor":
+            return NB.force_flat_neighbor(self.system, x, self.nbplan)
         self._check_route(x.device)
         return F.force_flat(self.system, x)
 
@@ -183,7 +264,8 @@ class MDSimulation(IsoSimulation):
         self._check_route(x.device)
         return I.langevin_middle(self.force, x, v, self.masses3, self.temp,
                                  self.friction, self.step, nsteps,
-                                 self._noise(gen, x.device))
+                                 self._noise(gen, x.device),
+                                 self.constraint_set)
 
     def _run(self, xs, nsteps, gen):
         v0 = self.random_velocities(gen, xs.shape)
@@ -195,6 +277,9 @@ class MDSimulation(IsoSimulation):
         Girsanov kernel, any other bias raises; on the CPU the plain
         recursion runs with the bias callable."""
         spec = getattr(self.bias, "optcontrol_spec", None)
+        if self.constraint_set is not None:
+            raise NotImplementedError("biased propagation of a constrained "
+                                      "system is not ported")
         if xs.device.type == "cpu":
             q, _, logw = I.aboba_girsanov(
                 self.force, self.bias, xs, p0,
@@ -261,6 +346,7 @@ class MDSimulation(IsoSimulation):
             warnings.warn(f"{int(bad.sum())} walkers diverged after "
                           f"retries; falling back to their start states")
             ys = torch.where(bad[:, None], xs[:nw], ys)
+        self._check_cell_overflow(ys)
         return ys.reshape(n, nk, d)
 
     def trajectory(self, steps=None, saveevery=1, x0=None,
@@ -290,7 +376,34 @@ class MDSimulation(IsoSimulation):
         if not saves:
             raise FloatingPointError("trajectory diverged immediately; "
                                      "reduce the timestep")
-        return torch.stack(saves)
+        out = torch.stack(saves)
+        self._check_cell_overflow(out, sample=len(saves))
+        return out
+
+    def _check_cell_overflow(self, ys, sample: int = 8):
+        """The neighbor route's safety net: the cell capacity is sized from
+        the start coordinates, and density drift that overflows a cell
+        drops interactions.  Checks the occupancy of up to ``sample``
+        finite frames of ``ys`` on the host; on overflow the plan regrows
+        (margin 2) from the first of them for later calls, and a warning
+        says that the frames just returned carried degraded forces."""
+        plan = self.nbplan
+        if plan is None:
+            return
+        xf = ys.detach().reshape(-1, self.dim)[:sample].cpu().numpy()
+        xf = xf[np.all(np.isfinite(xf), axis=1)]
+        if not len(xf):
+            return                 # divergence is handled by the caller
+        dropped = plan.overflow(xf)
+        if dropped:
+            self.nbplan = NB.NeighborPlan(
+                self.system, x0=xf[0].reshape(-1, 3), margin=2.0,
+                cell_div=plan.cell_div)
+            self.overflows += 1
+            warnings.warn(
+                f"neighbor cell overflow ({dropped} atoms dropped): forces "
+                f"of this propagation were degraded; cell capacity regrown "
+                f"{plan.C} -> {self.nbplan.C} for subsequent calls")
 
     def laggedtrajectory(self, lags, steps=None, x0=None,
                          resample_velocities=True, gen=None):

@@ -46,6 +46,8 @@ def test_port_imports_no_jax():
     assert {f"isokann_tpu_torch.{m}" for m in (
         "md.gb_kernel", "md.minimize", "md.fixtures", "md.amber",
         "md.topology", "md.langevin_kernel", "md.girsanov_kernel",
+        "md.neighbor", "md.neighbor_kernel", "md.solvate",
+        "md.constraints",
         "features", "sample", "data", "iso",
         "simulators.mdsim")} <= walked, out.stdout
 
