@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel) and holds each against its
-plain PyTorch version on the card.  Then it drives two paths through the
+plain PyTorch version on the card.  Then it drives five paths through the
 port's entry points:
 
 - the alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline:
@@ -32,13 +32,25 @@ port's entry points:
   builds AQGSAELAKVM and minimizes it (300 FIRE steps),
   ``MDSimulation(addwater=True, padding=1.0, steps=100)`` puts it in a
   TIP3P box (7,744 atoms, 2,526 rigid waters, reaction field under
-  minimum image), 4 walkers equilibrate for 200 steps, then randx0(16)
-  (1,600 single-walker steps from the equilibrated frame), propagate of
-  64 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
+  minimum image), 4 walkers equilibrate for 200 steps, then randx0(8)
+  (800 single-walker steps from the equilibrated frame), propagate of
+  32 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
   features, chis/koopman/rates: the cell-list pair-sweep kernel at every
   constrained MD step.
 
-It times the four kernels.  Each phase prints one line; any failed check
+- villin HP35 with all-pairs features on the hybrid route
+  (``tools/run_villin_scale.py``'s system, ``examples/villin.py``'s
+  minimization): ``peptide_pdb`` builds it from sequence and minimizes it
+  in OBC2 (800 FIRE steps), ``MDSimulation(steps=100, implicit="obc2",
+  features=FeaturesAll())`` = 588 atoms and 172,578 pair features,
+  ``Iso(nx=8, nk=4)`` with the default chi model (535 M parameters),
+  ``run(100)``, ``optcontrol`` + a biased ``propagate`` of 8 x 4 walkers,
+  ``run_girsanov(generations=2, iter=50, kde=8, forcescale=0.5)``,
+  chis/koopman/rates: the force kernel at every MD step, and inside the
+  bias at every biased step the pair-distance kernels (forward and
+  gradient), which also featurize every new batch.
+
+It times the six kernels.  Each phase prints one line; any failed check
 exits non-zero.  The last two lines are a JSON list of the kernels
 (launches on their path, error against the plain version, times, bound)
 and ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2
@@ -52,9 +64,11 @@ import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
 TB, TSTEPS = 4, 40     # solvated temperature witness: walkers, steps
+HP35 = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"    # villin headpiece
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -125,6 +139,7 @@ def main():
     from isokann_tpu_torch.md import neighbor as NB
     from isokann_tpu_torch.md import neighbor_kernel as NBK
     from isokann_tpu_torch.md.integrators import KB
+    from isokann_tpu_torch.ops import pairdists_kernel as PK
     dev = torch.device("cuda")
 
     # ---- 1. device -------------------------------------------------------
@@ -140,16 +155,18 @@ def main():
                         f"CUDA {torch.version.cuda}")
 
     # ---- 2. build: one nvcc per source, all started together ---------------
-    # While nvcc runs, the two peptides of phases 9 and 12 are built and
-    # minimized (FIRE over autograd: no hand-written kernel); their seconds
-    # are reported in those phases.
+    # While nvcc runs, the three peptides of phases 9, 12 and 15 are built
+    # and minimized (FIRE over autograd: no hand-written kernel); their
+    # seconds are reported in those phases.
     t0 = time.perf_counter()
     pdb = os.path.join(ROOT, "build", "chip_smoke", "trpcage.pdb")
     spdb = os.path.join(ROOT, "build", "chip_smoke", "solvated_peptide.pdb")
-    with ThreadPoolExecutor(4) as pool:
+    vpdb = os.path.join(ROOT, "build", "chip_smoke", "villin.pdb")
+    with ThreadPoolExecutor(5) as pool:
         jobs = [pool.submit(k.lib) for k in (LK.langevin_middle,
                                              GK.aboba_girsanov, GB.gb_force,
-                                             NBK.neighbor_sweep)]
+                                             NBK.neighbor_sweep,
+                                             PK.sqpairdist_fwd)]
         t1 = time.perf_counter()
         peptide_pdb("NLYIQWLKDGGPSSGRPPPS", pdb, minimize=True,
                     maxiter=1500, implicit="obc2")
@@ -159,10 +176,15 @@ def main():
         peptide_pdb("AQGSAELAKVM", spdb, minimize=True, maxiter=300)
         torch.cuda.synchronize()
         ts_pep = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        peptide_pdb(HP35, vpdb, minimize=True, maxiter=800, implicit="obc2")
+        torch.cuda.synchronize()
+        tv_pep = time.perf_counter() - t1
         for job in jobs:
             job.result()
     LK.forces.lib()
     GK.chi_grad.lib()
+    PK.sqpairdist_bwd.lib()
     log = sorted(p for p in os.listdir(os.path.join(ROOT, "build",
                                                     "torch_kernels"))
                  if p.endswith(".log"))
@@ -176,8 +198,10 @@ def main():
                        f"aboba_girsanov "
                        f"{GK.aboba_girsanov.build_seconds:.2f}s, gb_force "
                        f"{GB.gb_force.build_seconds:.2f}s, neighbor_sweep "
-                       f"{NBK.neighbor_sweep.build_seconds:.2f}s (parallel), "
-                       f"peptides {t_min:.2f}s + {ts_pep:.2f}s meanwhile")
+                       f"{NBK.neighbor_sweep.build_seconds:.2f}s, sqpairdist "
+                       f"{PK.sqpairdist_fwd.build_seconds:.2f}s (parallel), "
+                       f"peptides {t_min:.2f}s + {ts_pep:.2f}s + "
+                       f"{tv_pep:.2f}s meanwhile")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -691,9 +715,10 @@ def main():
     # ---- 12. solvated path --------------------------------------------------
     # examples/solvated_peptide.py's full variant at its widths: the
     # 11-residue peptide in a TIP3P box with 1 nm padding, rigid water, a
-    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 16.
+    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 8 (16
+    # until the villin path joined the script).
     t0 = time.perf_counter()
-    NXS, NKS, ITS, EQS, EQW = 16, 4, 200, 200, 4
+    NXS, NKS, ITS, EQS, EQW = 8, 4, 200, 200, 4
     t1 = time.perf_counter()
     ssim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100)
     ts_build = time.perf_counter() - t1
@@ -775,7 +800,8 @@ def main():
 
     # ---- 13. neighbor_sweep against plain -----------------------------------
     t0 = time.perf_counter()
-    xq = sy.reshape(-1, ssim.dim)[:64].contiguous()   # frames of the path
+    # frames of the path: its 32 burst ends, twice, for B = 64
+    xq = sy.reshape(-1, ssim.dim).repeat(2, 1)[:64].contiguous()
     nb_err, e_plain = 0.0, {}
     for label, a in (("RF", None), ("erfc", NB.ewald_alpha(1.0, 5e-4))):
         for b in ((1, 37, 64) if a is None else (1, 37)):
@@ -893,6 +919,258 @@ def main():
           f"{e_ms[1] / ms_x0:.1%} {stamp}")
     phase("neighbor_timing", t0)
 
+    # ---- 15. villin path -----------------------------------------------------
+    # The system of tools/run_villin_scale.py (HP35 with ACE/NME caps, OBC2,
+    # no constraints), minimized as examples/villin.py (800 FIRE steps, in
+    # phase 2), with all-pairs features and the default chi model, through
+    # Iso and run_girsanov at the reference's 0.2 ps Girsanov lag.  Depth
+    # cuts: nx 8, nk 4, 100 + 2 x 50 iterations, kde 8, 2 generations.
+    # Adam at lr 1e-5: at the default 1e-3 (and at 1e-4) the first steps
+    # move each first-layer pre-activation by about lr x the sum of the
+    # 172,578 LayerNorm'd features (~140 at 1e-3), every sigmoid saturates
+    # alike, chi is constant over the data and the shift-scale target
+    # divides 0 by 0: training raises DomainError, in the JAX package too.
+    t0 = time.perf_counter()
+    VNX, VNK, VIT, VGENS, VGIT, VLR = 8, 4, 100, 2, 50, 1e-5
+    for k in (PK.sqpairdist_fwd, PK.sqpairdist_bwd, GB.gb_force,
+              LK.langevin_middle, LK.forces, GK.aboba_girsanov,
+              NBK.neighbor_sweep):
+        k.launches = 0
+    t1 = time.perf_counter()
+    vsim = itt.MDSimulation(pdb=vpdb, steps=100, implicit="obc2",
+                            features=itt.FeaturesAll())
+    tv_sys = time.perf_counter() - t1
+    nfeat_v = vsim.natoms * (vsim.natoms - 1) // 2
+    require(vsim.natoms == 588 and vsim.route == "hybrid"
+            and isinstance(vsim.featurizer, itt.FeaturesAll),
+            "villin: 588 atoms on the hybrid route, all-pairs features")
+    vgen = itt.make_generator(60)
+    torch.cuda.reset_peak_memory_stats()
+    r0 = vsim.retries
+    t1 = time.perf_counter()
+    viso = itt.Iso(sim=vsim, nx=VNX, nk=VNK,
+                   opt=itt.AdamRegularized(adam=VLR), gen=vgen)
+    torch.cuda.synchronize()
+    tv_data = time.perf_counter() - t1
+    nparam = sum(p.numel() for p in viso.model.parameters())
+    require(viso.data.featuredim == nfeat_v == 172578
+            and viso.model.sizes == (172578, 3100, 56, 1),
+            "172,578 features into the default autonet (172578, 3100, 56, 1)")
+    t1 = time.perf_counter()
+    viso.run(VIT)
+    torch.cuda.synchronize()
+    tv_train = time.perf_counter() - t1
+    vl0 = np.asarray(viso.losses)
+    t1 = time.perf_counter()
+    vsim.bias = itt.optcontrol(viso, forcescale=0.5)
+    vws = vsim.propagate(viso.data.coords, VNK, gen=vgen)
+    vsim.bias = None
+    torch.cuda.synchronize()
+    tv_prop = time.perf_counter() - t1
+    require(isinstance(vws, itt.WeightedSamples)
+            and vws.values.shape == (VNX, VNK, vsim.dim)
+            and bool(torch.isfinite(vws.values).all())
+            and bool(torch.isfinite(vws.weights).all()),
+            "villin: biased propagate gives finite WeightedSamples")
+    t1 = time.perf_counter()
+    itt.run_girsanov(viso, generations=VGENS, iter=VGIT, kde=VNX,
+                     forcescale=0.5)
+    torch.cuda.synchronize()
+    tv_gir = time.perf_counter() - t1
+    vrows = viso.girsanov_telemetry
+    vchi, vkchi, vQ = viso.chis(), viso.koopman(), viso.rates()
+    c_launches = PK.sqpairdist_fwd.launches
+    cb_launches = PK.sqpairdist_bwd.launches
+    dv_launches = GB.gb_force.launches
+    biased_gens = sum(1 for r in vrows if r["biased"] and r["n_new"] > 0)
+    grown = sum(1 for r in vrows if r["n_new"] > 0)
+    biased_steps = 100 * (1 + biased_gens)
+    featurizations = 2 + 2 * grown          # from_sim, then each addcoords
+    want_d = (VNX * 100 + 100 * (1 + vsim.retries - r0) + biased_steps
+              + 100 * (grown - biased_gens))
+    for row in vrows:
+        print(f"  run_girsanov {row}")
+    print(f"  villin path: peptide_pdb (build + 800 FIRE steps) "
+          f"{tv_pep:.3f}s, MDSimulation {tv_sys:.3f}s, Iso(nx={VNX}, "
+          f"nk={VNK}) {tv_data:.3f}s (randx0 {VNX * 100} steps + propagate "
+          f"+ featurize + a {nparam}-parameter autonet), run({VIT}) "
+          f"{tv_train:.3f}s, optcontrol + biased propagate {VNX}x{VNK} "
+          f"{tv_prop:.3f}s, run_girsanov {VGENS} generations {tv_gir:.3f}s; "
+          f"loss {vl0[0]:.4f} -> {vl0[-1]:.4f}; weights "
+          f"[{float(vws.weights.min()):.4g}, {float(vws.weights.max()):.4g}]"
+          f"; retries {vsim.retries - r0}; launches: sqpairdist_fwd "
+          f"{c_launches} (expected {biased_steps} biased steps + "
+          f"{featurizations} featurizations), sqpairdist_bwd {cb_launches} "
+          f"(expected {biased_steps}), gb_force {dv_launches} (expected "
+          f"{want_d}); rates diag {np.diag(vQ).tolist()}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"{stamp}")
+    require(biased_gens >= 1, "villin: at least one biased generation")
+    require(cb_launches == biased_steps,
+            "sqpairdist_bwd launched once per biased MD step")
+    require(c_launches == biased_steps + featurizations,
+            "sqpairdist_fwd launched once per biased step and featurization")
+    require(dv_launches == want_d, "gb_force launched once per MD step")
+    require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
+            and GK.aboba_girsanov.launches == 0
+            and NBK.neighbor_sweep.launches == 0,
+            "the villin path runs no other kernel")
+    vpf = viso.data.propfeatures
+    require(isinstance(vpf, itt.WeightedSamples)
+            and bool(torch.isfinite(vpf.weights).all())
+            and bool(torch.isfinite(vpf.values).all()),
+            "villin: finite WeightedSamples")
+    vgl = np.asarray(viso.losses[VIT:]).reshape(VGENS, VGIT)
+    require(np.all(np.isfinite(vl0)) and vl0[-1] < vl0[0]
+            and np.all(np.isfinite(vgl)) and np.all(vgl[:, -1] < vgl[:, 0]),
+            "villin: finite losses falling in run() and in each generation")
+    require(vchi.shape == (len(viso.data), 1)
+            and bool(torch.isfinite(vchi).all())
+            and bool(torch.isfinite(vkchi).all()), "villin: chis finite")
+    require(np.all(np.diag(vQ) < 0), "villin: rates() negative diagonal")
+    phase("villin_path", t0, f"Iso {tv_data:.3f}s run {tv_train:.3f}s "
+                             f"run_girsanov {tv_gir:.3f}s")
+
+    # ---- 16. sqpairdist against plain ------------------------------------------
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(61)
+    nv = vsim.natoms
+    xv = (vsim.coords.reshape(1, nv, 3) + torch.as_tensor(
+        rng.normal(scale=0.01, size=(64, nv, 3)), dtype=torch.float32,
+        device=dev)).contiguous()
+    c_err = cb_err = 0.0
+    for b in (1, 37, 64):
+        xb = xv[:b].contiguous()
+        p_k = PK.sqpairdist_fwd(xb)
+        p_p = PK.sqpairdist_fwd_plain(xb)
+        ndiff = int((p_k != p_p).sum())
+        ae = float((p_k - p_p).abs().max())
+        c_err = max(c_err, ae)
+        # the dp of the i < j gather's backward: upper triangular
+        dp = torch.triu(torch.as_tensor(rng.normal(size=(b, nv, nv)),
+                                        dtype=torch.float32, device=dev),
+                        diagonal=1).contiguous()
+        g_k = PK.sqpairdist_bwd(xb, dp)
+        g_p = PK.sqpairdist_bwd_plain(xb, dp)
+        grel = float((g_k - g_p).abs().max() / g_p.abs().max())
+        cb_err = max(cb_err, float((g_k - g_p).abs().max()))
+        print(f"  sqpairdist B={b}: forward {ndiff} of {p_k.numel()} values "
+              f"differ from plain (max abs {ae:.3e}; tol 1e-6 relative); "
+              f"backward, upper-triangular dp: max rel err {grel:.3e} (tol "
+              f"1e-6)")
+        require(float((p_k - p_p).abs().max() / p_p.abs().max()) <= 1e-6,
+                f"sqpairdist_fwd vs plain at B={b}")
+        require(grel <= 1e-6, f"sqpairdist_bwd vs plain at B={b}")
+    dpd = torch.as_tensor(rng.normal(size=(64, nv, nv)), dtype=torch.float32,
+                          device=dev)
+    require(torch.equal(PK.sqpairdist_fwd(xv), PK.sqpairdist_fwd(xv))
+            and torch.equal(PK.sqpairdist_bwd(xv, dpd),
+                            PK.sqpairdist_bwd(xv, dpd)),
+            "sqpairdist: the same input gives the same bits")
+
+    iu, ju = (torch.as_tensor(a, device=dev) for a in np.triu_indices(nv, 1))
+
+    def plain_features(z):
+        """``FeaturesAll`` through the plain versions of both kernels."""
+        b = z.reshape(-1, nv, 3)
+        p = PK.sqpairdist_fused_plain(b)[:, iu, ju]
+        return torch.sqrt(torch.clamp(p, min=0.0)).reshape(
+            z.shape[:-1] + (len(iu),))
+
+    grads = []
+    for feat in (vsim.featurizer, plain_features):
+        z = xv[:32].reshape(32, -1).clone().requires_grad_(True)
+        torch.sin(feat(z)).sum().backward()
+        grads.append(z.grad)
+    frel = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max())
+    # the optcontrol bias of the trained villin chi model on both routes,
+    # its Koopman fit held at lambda = 0.8 (Kchi = 0.1 + 0.8 chi), so that
+    # the comparison does not depend on whether this chi contracts
+    chi_s = torch.linspace(0.0, 1.0, 12, device=dev)[:, None]
+    stub = SimpleNamespace(
+        data=SimpleNamespace(sim=vsim, featurizer=vsim.featurizer),
+        model=viso.model, chis=lambda: chi_s,
+        koopman=lambda: 0.1 + 0.8 * chi_s)
+    bias_k = itt.optcontrol(stub, forcescale=0.5)
+    stub.data.featurizer = plain_features
+    bias_p = itt.optcontrol(stub, forcescale=0.5)
+    sig = I.constants(vsim.masses3, vsim.temp, vsim.friction, False)
+    xv32 = viso.data.propcoords.values.reshape(-1, vsim.dim)[:32]
+    fb_k = bias_k(xv32, t=0.1, sigma=sig, F=None)
+    fb_p = bias_p(xv32, t=0.1, sigma=sig, F=None)
+    brel = float((fb_k - fb_p).abs().max() / fb_p.abs().max())
+    del bias_k, bias_p
+    print(f"  gradient of sum(sin(FeaturesAll)) B=32, kernel vs plain "
+          f"route: max rel err {frel:.3e} (tol 1e-6); optcontrol bias force "
+          f"of the trained chi model (lambda 0.8) B=32: max rel err "
+          f"{brel:.3e} (tol 1e-6), max "
+          f"|force| {float(fb_p.abs().max()):.4g}")
+    require(frel <= 1e-6, "feature gradient, kernel vs plain route")
+    require(brel <= 1e-6 and float(fb_p.abs().max()) > 0,
+            "optcontrol bias force, kernel vs plain route")
+    phase("sqpairdist_vs_plain", t0, "forward and backward at B=1/37/64, "
+                                     "same bits, feature gradient, bias")
+
+    # ---- 17. sqpairdist timing -------------------------------------------------
+    t0 = time.perf_counter()
+    c_ms, cb_ms, c_plain, cb_plain, c_lib = {}, {}, {}, {}, {}
+    for b in (1, 32, 1024):
+        xb = xv.repeat(-(-b // 64), 1, 1)[:b].contiguous()
+        dp = torch.triu(torch.ones(b, nv, nv, device=dev), diagonal=1)
+        reps = 20 if b < 1024 else 5
+        c_ms[b] = cuda_ms(lambda: PK.sqpairdist_fwd(xb), reps=reps)
+        cb_ms[b] = cuda_ms(lambda: PK.sqpairdist_bwd(xb, dp), reps=reps)
+        c_plain[b] = cuda_ms(lambda: PK.sqpairdist_fwd_plain(xb), reps=3)
+        cb_plain[b] = cuda_ms(lambda: PK.sqpairdist_bwd_plain(xb, dp), reps=3)
+        c_lib[b] = cuda_ms(lambda: torch.cdist(
+            xb, xb, compute_mode="donot_use_mm_for_euclid_dist"), reps=reps)
+        del dp
+        for name, ms_, plain in (("fwd", c_ms[b], c_plain[b]),
+                                 ("bwd", cb_ms[b], cb_plain[b])):
+            bb, by = PK.bound_ms(name, b, nv)
+            lib = (f", torch.cdist {c_lib[b]:.4f} ms" if name == "fwd"
+                   else ", no library call")
+            print(f"  sqpairdist_{name} B={b} N={nv}: {ms_:.4f} ms, bound "
+                  f"{bb:.4f} ms ({by}, {bb / ms_:.2%} of it), plain "
+                  f"{plain:.4f} ms{lib} {stamp}")
+    # ms a biased hybrid step at B = 32, and the share of C + C' in it
+    stub.data.featurizer = vsim.featurizer
+    bias_t = itt.optcontrol(stub, forcescale=0.5)
+    x32 = viso.data.propcoords.values.reshape(-1, vsim.dim)[:32].contiguous()
+    p32 = vsim.random_velocities(itt.make_generator(62), x32.shape) \
+        * vsim.masses3
+    NSB = 20
+    g62 = vsim._noise(itt.make_generator(63), dev)
+    I.aboba_girsanov(vsim.force, bias_t, x32, p32, vsim.masses3, vsim.temp,
+                     vsim.friction, vsim.step, 2, g62)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    I.aboba_girsanov(vsim.force, bias_t, x32, p32, vsim.masses3, vsim.temp,
+                     vsim.friction, vsim.step, NSB, g62)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1) / NSB
+
+    def host_ms(fn, reps=NSB):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t1) / reps
+
+    force_ms = host_ms(lambda: vsim.force(x32))
+    bias_ms = host_ms(lambda: bias_t(x32, t=0.1, sigma=sig, F=None))
+    del bias_t
+    share = (c_ms[32] + cb_ms[32]) / step_ms
+    print(f"  biased hybrid step B=32: {step_ms:.3f} ms a step over {NSB} "
+          f"steps; of it the force (kernel D + bonded autograd) "
+          f"{force_ms:.3f} ms, the bias (sqpairdist fwd, the 535 M-parameter "
+          f"chi forward and backward, sqpairdist bwd) {bias_ms:.3f} ms, "
+          f"sqpairdist fwd + bwd {c_ms[32] + cb_ms[32]:.4f} ms = "
+          f"{share:.2%} of the step {stamp}")
+    phase("sqpairdist_timing", t0)
+
     kernels = [{
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
@@ -921,6 +1199,20 @@ def main():
         "launches": e_launches, "max_abs_err": nb_err, "ms": e_ms[64],
         "plain_ms": e_plain[64], "bound_ms": e_bms, "bound_by": e_by,
         "library_ms": None,
+    }, {
+        "name": "sqpairdist_fwd", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/sqpairdist.cu",
+        "replaces": "isokann_tpu/ops/pairdists.py:168",
+        "launches": c_launches, "max_abs_err": c_err, "ms": c_ms[32],
+        "plain_ms": c_plain[32], "bound_ms": PK.bound_ms("fwd", 32, nv)[0],
+        "bound_by": PK.bound_ms("fwd", 32, nv)[1], "library_ms": c_lib[32],
+    }, {
+        "name": "sqpairdist_bwd", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/sqpairdist.cu",
+        "replaces": "isokann_tpu/ops/pairdists.py:195",
+        "launches": cb_launches, "max_abs_err": cb_err, "ms": cb_ms[32],
+        "plain_ms": cb_plain[32], "bound_ms": PK.bound_ms("bwd", 32, nv)[0],
+        "bound_by": PK.bound_ms("bwd", 32, nv)[1], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ torch.backends.cudnn.allow_tf32 = False
 
 from ._device import make_generator, resolve_device  # noqa: E402
 from .data import SimulationData, WeightedSamples  # noqa: E402
-from .features import (FeaturesAll, FeaturesPairs,  # noqa: E402
+from .features import (FeaturesAll, FeaturesAngles,  # noqa: E402
+                       FeaturesAtoms, FeaturesCoords, FeaturesPairs,
                        FeaturesRandomPairs)
 from .iso import Iso  # noqa: E402
 from .md.integrators import optcontrol  # noqa: E402
@@ -29,7 +30,8 @@ from .targets import (DomainError, TransformShiftscale,  # noqa: E402
 from .workflows import run_girsanov  # noqa: E402
 
 __all__ = [
-    "AdamRegularized", "DomainError", "FeaturesAll", "FeaturesPairs",
+    "AdamRegularized", "DomainError", "FeaturesAll", "FeaturesAngles",
+    "FeaturesAtoms", "FeaturesCoords", "FeaturesPairs",
     "FeaturesRandomPairs", "Iso", "MDSimulation",
     "MLP", "NesterovRegularized", "SimulationData",
     "TransformShiftscale", "WeightedSamples", "autonet", "expectation",

@@ -10,8 +10,9 @@ forces, with rigid-water constraints where the system has them
 (``md.constraints``).
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
-explicit ``torch.Generator`` on that generator's device and moved to the
-walkers' device.
+explicit ``torch.Generator``: LangevinMiddle draws on the generator's
+device and moves the noise to the walkers', ABOBA draws on the walkers'
+device (a CUDA generator for walkers on the card).
 """
 
 from __future__ import annotations
@@ -125,7 +126,8 @@ def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
         p += dt/2 (F + B); p = d p + f eta; p += dt/2 (F + B)   (B O B)
         q += dt/2 p/m                                    (A)
 
-    ``gen=None`` runs the noiseless recursion (eta = 0).  Returns
+    ``gen=None`` runs the noiseless recursion (eta = 0); eta is drawn
+    from ``gen`` on the walkers' device.  Returns
     (q, p, logw), or (qs, logws, (q, p, logw)) with ``save_every``."""
     sig = constants(masses3, T, gamma, overdamped=False)
     d = math.exp(-gamma * dt)
@@ -136,7 +138,8 @@ def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
     t = 0.0
     qs, logws = [], []
     for i in range(int(nsteps)):
-        eta = (torch.randn(p.shape, generator=gen, dtype=p.dtype).to(p.device)
+        eta = (torch.randn(p.shape, generator=gen, dtype=p.dtype,
+                           device=p.device)
                if gen is not None else torch.zeros_like(p))
         q = q + t2 * p / masses3                                     # A
         F = force_fn(q)

@@ -3,7 +3,8 @@
 ``MLP``: optional input LayerNorm (eps 1e-5, Flux semantics), dense
 layers with Glorot-uniform weights and zero biases, ``activation`` on the
 hidden layers and ``lastactivation`` on the output.  Inputs are
-(..., features), outputs (..., nout).
+(..., features), outputs (..., nout).  A model built with ``device`` on
+the card draws its weights there (see ``MLP.reset_parameters``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ._device import make_generator
+from ._device import draw_seed, make_generator
 
 ACTIVATIONS = {
     "sigmoid": torch.sigmoid,
@@ -25,24 +26,36 @@ ACTIVATIONS = {
 class MLP(nn.Module):
     def __init__(self, sizes: Sequence[int], activation: str = "sigmoid",
                  lastactivation: str = "identity", layernorm: bool = False,
-                 gen=None):
+                 gen=None, device=None):
         super().__init__()
         self.sizes = tuple(int(s) for s in sizes)
         self.activation = activation
         self.lastactivation = lastactivation
         self.layernorm = bool(layernorm)
-        self.ln = nn.LayerNorm(self.sizes[0], eps=1e-5) if layernorm else None
+        self.ln = (nn.LayerNorm(self.sizes[0], eps=1e-5, device=device)
+                   if layernorm else None)
         self.layers = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(self.sizes[:-1], self.sizes[1:]))
+            nn.Linear(a, b, device=device)
+            for a, b in zip(self.sizes[:-1], self.sizes[1:]))
         self.reset_parameters(make_generator(gen))
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator):
-        """Glorot-uniform weights (Flux's Dense default), zero biases."""
+        """Glorot-uniform weights (Flux's Dense default), zero biases.
+        The uniform draws come from ``gen`` for a model on the CPU; on the
+        card from a CUDA generator seeded by one draw of ``gen``, so that
+        a model of 10^8 weights and more (all-pairs features of a
+        protein) is neither drawn on the host nor copied to the card."""
+        device = self.layers[0].weight.device
+        if device.type != "cpu":
+            g = torch.Generator(device=device)
+            g.manual_seed(draw_seed(gen))
+            gen = g
         for layer in self.layers:
             fan_out, fan_in = layer.weight.shape
             limit = math.sqrt(6.0 / (fan_in + fan_out))
-            w = torch.rand((fan_in, fan_out), generator=gen) * 2 - 1
+            w = torch.rand((fan_in, fan_out), generator=gen,
+                           device=device) * 2 - 1
             layer.weight.copy_((w * limit).T)
             layer.bias.zero_()
 
@@ -66,27 +79,28 @@ class MLP(nn.Module):
 
 
 def densenet(layers: Sequence[int], activation="sigmoid",
-             lastactivation="identity", layernorm=False, gen=None) -> MLP:
-    return MLP(layers, activation, lastactivation, layernorm, gen)
+             lastactivation="identity", layernorm=False, gen=None,
+             device=None) -> MLP:
+    return MLP(layers, activation, lastactivation, layernorm, gen, device)
 
 
 def pairnet(n: int, layers: int = 3, activation="sigmoid",
             lastactivation="identity", nout: int = 1, layernorm: bool = True,
-            gen=None) -> MLP:
+            gen=None, device=None) -> MLP:
     """Default chi MLP with geometric width decay n^(l/L)."""
     sizes = [round(n ** (l / layers)) for l in range(layers, 0, -1)] + [nout]
-    return densenet(sizes, activation, lastactivation, layernorm, gen)
+    return densenet(sizes, activation, lastactivation, layernorm, gen, device)
 
 
 def smallnet(nin: int, nout: int = 1, activation="sigmoid",
-             lastactivation="identity", gen=None) -> MLP:
+             lastactivation="identity", gen=None, device=None) -> MLP:
     """3x8-unit MLP for low-dimensional inputs."""
     return densenet([nin, 8, 8, 8, nout], activation, lastactivation, False,
-                    gen)
+                    gen, device)
 
 
-def autonet(n: int, nout: int = 1, gen=None, **kwargs) -> MLP:
+def autonet(n: int, nout: int = 1, gen=None, device=None, **kwargs) -> MLP:
     """smallnet below 16 features, pairnet from 16 up."""
     if n < 16:
-        return smallnet(n, nout=nout, gen=gen)
-    return pairnet(n=n, nout=nout, gen=gen, **kwargs)
+        return smallnet(n, nout=nout, gen=gen, device=device)
+    return pairnet(n=n, nout=nout, gen=gen, device=device, **kwargs)

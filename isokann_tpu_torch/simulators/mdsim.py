@@ -36,13 +36,23 @@ step's noise from a CUDA ``torch.Generator`` seeded from the caller's
 generator.
 
 With a ``bias`` (``md.integrators.optcontrol``), ``propagate`` runs
-Girsanov-weighted ABOBA and returns ``WeightedSamples``: on the card
-through ``md.girsanov_kernel.aboba_girsanov`` (the hand-written kernel,
-any batch size) when the system takes the fused route and the bias's chi
-model is one the kernel takes, and raising otherwise; on the CPU through
-the plain recursion ``md.integrators.aboba_girsanov`` with the bias
-callable (unconstrained systems only).  As in the reference, biased
-walkers that diverge are not retried.
+Girsanov-weighted ABOBA and returns ``WeightedSamples``.  On the card:
+
+- the fused route runs the whole biased trajectory in
+  ``md.girsanov_kernel.aboba_girsanov`` (kernel B, any batch size) when
+  the bias's chi model is one the kernel takes, and raises for any other
+  bias;
+- the hybrid route runs the plain ABOBA recursion
+  (``md.integrators.aboba_girsanov``) over ``force_flat_hybrid`` with the
+  bias callable, as the reference's XLA biased path does: kernel D at
+  every step, and inside an ``optcontrol`` bias over all-pairs features
+  of >= 512 atoms (e.g. villin with ``FeaturesAll``) kernels C and C′
+  (``ops.pairdists_kernel``) once each per step;
+- the other routes raise.
+
+On the CPU the plain recursion runs with the bias callable on every
+unconstrained route.  A constrained system raises on every device.  As
+in the reference, biased walkers that diverge are not retried.
 
 Generic bond constraints (HBonds), virtual sites (TIP4P), Ewald, a biased
 ``trajectory`` and the Brownian integrator are not ported.
@@ -112,7 +122,9 @@ class MDSimulation(IsoSimulation):
     - steps: integrator steps per Koopman lag
     - temp [K], friction [1/ps], step [ps]
     - features: None (all pairs under 100 atoms, else 100 random pairs),
-      a pair list or a callable
+      a radius in nm (C-alpha pairs + local heavy-atom pairs of the PDB),
+      a pair list, an atom list (all pairs among them) or a callable
+      such as ``FeaturesAll()``
     - method/cutoff: nonbonded method ("auto": CutoffPeriodic with a box,
       CutoffNonPeriodic without)
     - implicit: None or "obc2" (OBC2 GBSA implicit solvent; forces
@@ -185,7 +197,7 @@ class MDSimulation(IsoSimulation):
             if self.route == "neighbor" else None)
         if addwater and features is None:
             features = solute_pairs(nsolute)
-        self.featurizer = default_featurizer(self.natoms, features)
+        self.featurizer = default_featurizer(pdb, self.natoms, features)
 
     # ---- accessors ---------------------------------------------------------
 
@@ -215,7 +227,7 @@ class MDSimulation(IsoSimulation):
     def defaultmodel(self, n=None, nout=1, gen=None, **kwargs):
         from ..models import autonet
         return autonet(n if n is not None else self.dim, nout=nout, gen=gen,
-                       **kwargs).to(self.device)
+                       device=self.device, **kwargs)
 
     def random_velocities(self, gen, shape):
         return I.maxwell_boltzmann(gen, self.masses3, self.temp, shape)
@@ -272,26 +284,27 @@ class MDSimulation(IsoSimulation):
         return self._integrate(xs, v0, nsteps, gen)[0]
 
     def _girsanov(self, xs, p0, nsteps, gen):
-        """Biased ABOBA for (B, 3N) walkers -> (q, logw).  On the card an
-        ``optcontrol`` bias whose chi model the kernel takes runs in the
-        Girsanov kernel, any other bias raises; on the CPU the plain
-        recursion runs with the bias callable."""
-        spec = getattr(self.bias, "optcontrol_spec", None)
+        """Biased ABOBA for (B, 3N) walkers -> (q, logw): the Girsanov
+        kernel on the card's fused route (an ``optcontrol`` bias it takes,
+        else raising), the plain recursion with the bias callable on the
+        card's hybrid route and on the CPU."""
         if self.constraint_set is not None:
             raise NotImplementedError("biased propagation of a constrained "
                                       "system is not ported")
-        if xs.device.type == "cpu":
+        if xs.device.type == "cpu" or self.route == "hybrid":
             q, _, logw = I.aboba_girsanov(
                 self.force, self.bias, xs, p0,
                 self.masses3, self.temp, self.friction, self.step, nsteps,
-                gen)
+                self._noise(gen, xs.device))
             return q, logw
-        if spec is None or not self.kernel_takes_bias():
+        if not self.kernel_takes_bias():
             raise NotImplementedError(
-                f"no Girsanov kernel on {xs.device} for this bias or "
-                f"system: the card takes optcontrol biases over FeaturesAll "
-                f"with a sigmoid / identity MLP chi model, for at most "
-                f"{LK.MAX_ATOMS} atoms in vacuum")
+                f"no biased path on {xs.device} for this bias or system "
+                f"(route {self.route!r}): the card takes optcontrol biases "
+                f"over FeaturesAll with a sigmoid / identity MLP chi model "
+                f"on the fused route (at most {LK.MAX_ATOMS} atoms in "
+                f"vacuum) and any bias on the hybrid route")
+        spec = self.bias.optcontrol_spec
         plan = GK.GirsanovPlan.for_model(self.plan, spec["model"],
                                          spec["forcescale"])
         q, _, logw = GK.aboba_girsanov(

@@ -21,7 +21,12 @@ def run_girsanov(iso, generations=1, iter=100, kde=1, forcescale=1.0,
     (Girsanov-weighted ``WeightedSamples``), keeps the last ``cutoff``
     points and trains ``iter`` weighted Koopman iterations.  Before chi
     contracts (``optcontrol`` raises ``DomainError``) a generation samples
-    unbiased.  On the card the biased bursts run in the Girsanov kernel.
+    unbiased.  On the card the biased bursts run in the Girsanov kernel
+    (kernel B) on the fused route, and on the hybrid route in the ABOBA
+    recursion over kernel D's forces with the bias callable (kernels C
+    and C′ inside an all-pairs bias of >= 512 atoms).  The previous
+    generation's bias, a frozen copy of the model, is dropped before the
+    next is made.
 
     Keep the lag short (the reference's 0.2 ps) or temper with
     ``forcescale`` <= 0.5: at MD scale the log-weight variance grows with
@@ -45,6 +50,7 @@ def run_girsanov(iso, generations=1, iter=100, kde=1, forcescale=1.0,
     low_streak = 0
     try:
         for g in range(generations):
+            sim.bias = None
             try:
                 sim.bias = optcontrol(iso, forcescale=forcescale)
             except DomainError:

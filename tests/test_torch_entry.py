@@ -47,8 +47,8 @@ def test_port_imports_no_jax():
         "md.gb_kernel", "md.minimize", "md.fixtures", "md.amber",
         "md.topology", "md.langevin_kernel", "md.girsanov_kernel",
         "md.neighbor", "md.neighbor_kernel", "md.solvate",
-        "md.constraints",
-        "features", "sample", "data", "iso",
+        "md.constraints", "ops.pairdists", "ops.pairdists_kernel",
+        "ops.dihedrals", "features", "sample", "data", "iso",
         "simulators.mdsim")} <= walked, out.stdout
 
 
