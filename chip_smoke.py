@@ -50,11 +50,13 @@ port's entry points:
   bias at every biased step the pair-distance kernels (forward and
   gradient), which also featurize every new batch.
 
-It times the six kernels.  Each phase prints one line; any failed check
-exits non-zero.  The last two lines are a JSON list of the kernels
-(launches on their path, error against the plain version, times, bound)
-and ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU; exits 2
-without one.  Imports nothing of JAX.
+It times the kernels: E whole (its ``ms``, layout and sweep, as an MD
+step pays it) and its sweep alone (``sweep_ms``), and E's layout kernel
+against ``kernel_records``, its plain version.  Each phase prints
+one line; any failed check exits non-zero.  The last two lines are a JSON
+list of the kernels (launches on their path, error against the plain
+version, times, bound) and ``{"ok": true, "device": {...}}``.  Needs one
+CUDA GPU; exits 2 without one.  Imports nothing of JAX.
 """
 
 import json
@@ -183,6 +185,7 @@ def main():
         for job in jobs:
             job.result()
     LK.forces.lib()
+    NBK.neighbor_layout.lib()
     GK.chi_grad.lib()
     PK.sqpairdist_bwd.lib()
     log = sorted(p for p in os.listdir(os.path.join(ROOT, "build",
@@ -321,6 +324,14 @@ def main():
     ms1 = cuda_ms(lambda: LK.langevin_middle(plan, x1, v1, 100, g6), reps=5)
     print(f"  langevin_middle B=1 x100 steps (one randx0 lag): {ms1:.3f} ms "
           f"{stamp}")
+    b1ms, _ = LK.bound_ms(plan, 1, 100)
+    kops_a, sops_a = LK.kernel_ops(plan), LK.step_ops(plan)
+    print(f"  langevin_middle operations a walker-step: {sops_a:.0f} the "
+          f"function needs (the bound's), {kops_a:.0f} the kernel executes "
+          f"({kops_a / sops_a:.2f}x, each pair from both sides); blocks "
+          f"{LK.blocks(1)} at B=1 and {LK.blocks(B)} at B={B} (a warp per "
+          f"walker, {LK.WARPS_PER_BLOCK} a block); bound at B=1 x100 steps "
+          f"{b1ms:.5f} ms ({b1ms / ms1:.2%} of it)")
     fms = cuda_ms(lambda: LK.forces(plan, x), reps=5)
     print(f"  forces entry (parity only, not on the main path) B={B}: "
           f"{fms:.4f} ms, max rel err {ferr:.3e} {stamp}")
@@ -733,8 +744,8 @@ def main():
     require(ssim.natoms == 7744 and ssim.route == "neighbor"
             and cset.nwater == 2526 and not ssim.system.dense_pairs,
             "7,744 atoms with 2,526 rigid waters on the neighbor route")
-    for k in (NBK.neighbor_sweep, LK.langevin_middle, LK.forces,
-              GK.aboba_girsanov, GB.gb_force):
+    for k in (NBK.neighbor_sweep, NBK.neighbor_layout, LK.langevin_middle,
+              LK.forces, GK.aboba_girsanov, GB.gb_force):
         k.launches = 0
     sgen = itt.make_generator(50)
     r0 = ssim.retries
@@ -766,6 +777,7 @@ def main():
     ts_train = time.perf_counter() - t1
     schi, skchi, sQ = siso.chis(), siso.koopman(), siso.rates()
     e_launches = NBK.neighbor_sweep.launches
+    l_launches = NBK.neighbor_layout.launches
     want = (EQS * (1 + r1 - r0) + NXS * 100 + 100 * (1 + r2 - r1))
     viol = max(cset.max_violation(sxs), cset.max_violation(sy))
     ms_x0 = 1e3 * ts_x0 / (NXS * 100)
@@ -777,9 +789,11 @@ def main():
           f"{ts_train:.3f}s; loss {siso.losses[0]:.4f} -> "
           f"{siso.losses[-1]:.4f}; retries {r2 - r0}, overflows "
           f"{ssim.overflows}; constraint violation {viol:.2e} nm; "
-          f"neighbor_sweep launches {e_launches} (expected {want}); rates "
+          f"neighbor_sweep launches {e_launches}, neighbor_layout "
+          f"{l_launches} (expected {want} each); rates "
           f"diag {np.diag(sQ).tolist()} {stamp}")
-    require(e_launches == want, "neighbor_sweep launches = one per MD step")
+    require(e_launches == want and l_launches == want,
+            "neighbor_layout and neighbor_sweep launches = one per MD step")
     require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
             and GK.aboba_girsanov.launches == 0
             and GB.gb_force.launches == 0,
@@ -802,7 +816,32 @@ def main():
     t0 = time.perf_counter()
     # frames of the path: its 32 burst ends, twice, for B = 64
     xq = sy.reshape(-1, ssim.dim).repeat(2, 1)[:64].contiguous()
-    nb_err, e_plain = 0.0, {}
+    nb_err, lay_err, e_plain = 0.0, 0.0, {}
+    # the layout kernel against kernel_records, bit for bit (the tile
+    # boxes, and the live slots: the kernel writes no other): the path's
+    # plan, and a capacity of 300 where full cells drop atoms
+    def same_layout(got, want):
+        live = NBK.live_slots(want[1])
+        r_k, r_p = got[0][live], want[0][live]
+        return (torch.equal(got[1], want[1])
+                and torch.equal(r_k.view(torch.int32),
+                                r_p.view(torch.int32)),
+                float((r_k[:, :6] - r_p[:, :6]).abs().max()))
+
+    small = NB.NeighborPlan(ssim.system, capacity=300, cell_div=splan.cell_div)
+    for p_, b in ((splan, 1), (splan, 37), (splan, 64), (small, 4)):
+        xb = xq[:b].contiguous()
+        got = NBK.neighbor_layout(ssim.system, p_, xb)
+        same, err = same_layout(got, NBK.kernel_records(ssim.system, p_, xb))
+        lay_err = max(lay_err, err)
+        print(f"  neighbor_layout capacity {p_.C} B={b}: live records and "
+              f"tile boxes {'equal' if same else 'differ from'} "
+              f"kernel_records' bit for bit ({got[0].shape[2]} slots a "
+              f"cell, {int(got[1][..., 3].sum()) // b} of {ssim.natoms} "
+              f"atoms kept a walker)")
+        require(same, f"neighbor_layout vs kernel_records, capacity "
+                      f"{p_.C}, B={b}")
+    require(small.overflow(xq[:4]) > 0, "the capacity-300 plan drops atoms")
     for label, a in (("RF", None), ("erfc", NB.ewald_alpha(1.0, 5e-4))):
         for b in ((1, 37, 64) if a is None else (1, 37)):
             xb = xq[:b].contiguous()
@@ -826,6 +865,9 @@ def main():
     xa = (asim.coords[None] + torch.as_tensor(
         np.random.default_rng(52).normal(scale=0.003, size=(37, asim.dim)),
         dtype=torch.float32, device=dev)).contiguous()
+    require(same_layout(NBK.neighbor_layout(asim.system, aplan, xa),
+                        NBK.kernel_records(asim.system, aplan, xa))[0],
+            "neighbor_layout vs kernel_records, non-Newton plan")
     f_k = NBK.neighbor_sweep(asim.system, aplan, xa)
     f_p = NBK.neighbor_sweep_plain(asim.system, aplan, xa)
     rel = float((f_k - f_p).abs().max() / f_p.abs().max())
@@ -889,34 +931,55 @@ def main():
                                    "temperature")
 
     # ---- 14. neighbor_sweep timing ------------------------------------------
+    # the wrapper, and apart: the layout kernel (its plain version
+    # kernel_records beside it) and the sweep alone on records made
+    # beforehand
     t0 = time.perf_counter()
-    e_ms = {}
+    e_ms, e_prep, e_alone, l_plain, l_bound = {}, {}, {}, {}, {}
     for b in (1, 64, 256):
         xb = xq.repeat(-(-b // 64), 1)[:b].contiguous()
+        reps = 20 if b == 1 else 3
         e_ms[b] = cuda_ms(lambda: NBK.neighbor_sweep(ssim.system, splan, xb),
-                          reps=20 if b == 1 else 3)
+                          reps=reps)
+        e_prep[b] = cuda_ms(lambda: NBK.neighbor_layout(ssim.system, splan,
+                                                        xb), reps=reps)
+        l_plain[b] = cuda_ms(lambda: NBK.kernel_records(ssim.system, splan,
+                                                        xb), reps=reps)
+        rec, boxes = NBK.neighbor_layout(ssim.system, splan, xb)
+        l_bound[b] = NBK.layout_bound_ms(splan, boxes)[0]
+        fout = torch.zeros_like(xb)
+        e_alone[b] = cuda_ms(lambda: NBK.neighbor_sweep.launch(
+            ssim.system, splan, rec, boxes, out=fout), reps=reps)
+        del rec, boxes, fout
     _, e_plain[16] = timed(lambda: NBK.neighbor_sweep_plain(
         ssim.system, splan, xq[:16].contiguous()))
     # the bound from this run's pairs: xq's 64 frames (B = 64, and four
     # times over at B = 256), its first frame at B = 1
     nq = xq.shape[0]
-    in_range, visited = NBK.pair_counts(ssim.system, splan, xq)
-    in_1, _ = NBK.pair_counts(ssim.system, splan, xq[:1])
+    in_range, visited, culls = NBK.pair_counts(ssim.system, splan, xq)
+    in_1 = NBK.pair_counts(ssim.system, splan, xq[:1])[0]
     e_bms, e_by = NBK.bound_ms(splan, nq, in_range)
     bounds = {1: NBK.bound_ms(splan, 1, in_1)[0], nq: e_bms,
               256: NBK.bound_ms(splan, 256, in_range * 256 // nq)[0]}
-    kops, sops = NBK.kernel_ops(in_range, visited), NBK.step_ops(in_range)
+    kops = NBK.kernel_ops(in_range, visited, culls)
+    sops = NBK.step_ops(in_range)
     for b in (1, 64, 256):
-        print(f"  neighbor_sweep B={b}: {e_ms[b]:.4f} ms, bound "
-              f"{bounds[b]:.4f} ms ({e_by}, {bounds[b] / e_ms[b]:.2%} of "
-              f"it) {stamp}")
+        print(f"  neighbor_sweep B={b}: wrapper {e_ms[b]:.4f} ms = layout "
+              f"kernel {e_prep[b]:.4f} ms (bound {l_bound[b]:.4f} ms, bytes, "
+              f"{l_bound[b] / e_prep[b]:.2%} of it; plain "
+              f"kernel_records {l_plain[b]:.4f} ms) + sweep alone "
+              f"{e_alone[b]:.4f} ms (bound {bounds[b]:.4f} ms, {e_by}, "
+              f"{bounds[b] / e_alone[b]:.2%} of it) {stamp}")
     print(f"  neighbor_sweep plain B=1: {e_plain[1]:.3f} ms, B=16: "
           f"{e_plain[16]:.3f} ms, B=64: {e_plain[64]:.3f} ms; pairs in "
           f"cutoff {in_range / nq:.0f} a walker (unordered), slot pairs "
-          f"visited {visited / nq:.0f}; operations {sops / nq:.4g} the "
-          f"function needs, {kops / nq:.4g} the kernel executes "
-          f"({kops / sops:.1f}x); share of a randx0 step (B=1) "
-          f"{e_ms[1] / ms_x0:.1%} {stamp}")
+          f"tested {visited / nq:.0f} ({visited / in_range:.2f} an "
+          f"unordered pair in range), culling tests {culls / nq:.0f}; "
+          f"operations {sops / nq:.4g} the function needs, {kops / nq:.4g} "
+          f"the kernel executes ({kops / sops:.2f}x); blocks at B=1: "
+          f"{NBK.blocks(splan, 1)} ({NBK.tiles(splan)} tiles of "
+          f"{NBK.TILE} slots a cell, {NBK.SPLIT} warps a tile); share "
+          f"of a randx0 step (B=1) {e_ms[1] / ms_x0:.1%} {stamp}")
     phase("neighbor_timing", t0)
 
     # ---- 15. villin path -----------------------------------------------------
@@ -934,7 +997,7 @@ def main():
     VNX, VNK, VIT, VGENS, VGIT, VLR = 8, 4, 100, 2, 50, 1e-5
     for k in (PK.sqpairdist_fwd, PK.sqpairdist_bwd, GB.gb_force,
               LK.langevin_middle, LK.forces, GK.aboba_girsanov,
-              NBK.neighbor_sweep):
+              NBK.neighbor_sweep, NBK.neighbor_layout):
         k.launches = 0
     t1 = time.perf_counter()
     vsim = itt.MDSimulation(pdb=vpdb, steps=100, implicit="obc2",
@@ -1013,7 +1076,8 @@ def main():
     require(dv_launches == want_d, "gb_force launched once per MD step")
     require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
             and GK.aboba_girsanov.launches == 0
-            and NBK.neighbor_sweep.launches == 0,
+            and NBK.neighbor_sweep.launches == 0
+            and NBK.neighbor_layout.launches == 0,
             "the villin path runs no other kernel")
     vpf = viso.data.propfeatures
     require(isinstance(vpf, itt.WeightedSamples)
@@ -1197,7 +1261,15 @@ def main():
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
         "launches": e_launches, "max_abs_err": nb_err, "ms": e_ms[64],
-        "plain_ms": e_plain[64], "bound_ms": e_bms, "bound_by": e_by,
+        "sweep_ms": e_alone[64], "plain_ms": e_plain[64], "bound_ms": e_bms,
+        "bound_by": e_by, "library_ms": None,
+    }, {
+        "name": "neighbor_layout", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
+        "replaces": "isokann_tpu/md/neighbor.py:926",
+        "launches": l_launches, "max_abs_err": lay_err, "ms": e_prep[64],
+        "plain_ms": l_plain[64],
+        "bound_ms": l_bound[64], "bound_by": "bytes",
         "library_ms": None,
     }, {
         "name": "sqpairdist_fwd", "route": "cuda",

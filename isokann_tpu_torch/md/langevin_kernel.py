@@ -10,6 +10,13 @@ TPU kernel, with ``make_force_parts`` and ``_atan2``).  The CUDA source is
 - ``forces_plain`` / ``langevin_middle_plain``: the same arithmetic in
   tensor ops.  The CPU tests use them; on the card they are the reference
   the kernel is held against.
+- ``forces_gather``: the kernel's force routine in tensor ops, in its
+  order and with its formulas (1/r from a reciprocal square root): each
+  atom's nonbonded force gathered over its partners through the dense
+  pair table, then its bonded slots through its list.  Its rounding is
+  the CPU's, not the card's (``rsqrtf`` is within 2 ulp, fused
+  multiply-adds round once).  The CPU tests hold it to ``forces_plain``
+  and to the JAX package.
 - ``forces`` / ``langevin_middle``: the wrappers.  A CPU tensor takes the
   plain version; a CUDA tensor launches the kernel or raises.  Each
   wrapper counts its kernel launches in ``.launches``.
@@ -26,7 +33,8 @@ import torch
 from .integrators import KB
 from .system import COULOMB, MDSystem
 
-MAX_ATOMS = 64          # the kernel's shared-memory state holds <= 64 atoms
+MAX_ATOMS = 64          # the kernel's lanes own <= 2 atoms each
+WARPS_PER_BLOCK = 4     # walkers per block of the kernel, one warp each
 H100_FP32_PEAK = 67e12  # FLOP/s outside the tensor cores, H100 SXM, 700 W
 H100_HBM_BYTES_PER_S = 3.35e12
 # natoms np nb na nd use_rf | rc krf | periodic | bx by bz
@@ -42,7 +50,15 @@ class LangevinPlan:
       torsions (4 nd);
     - ``ftab`` (float32): per pair qq, eps, rmin, full (np each; exclusion
       and 1-4 scales folded in) | bond k, r0 | angle k, theta0 | torsion
-      pk, phase, n | 1/m per coordinate (3N) | sqrt(kB T/m) (3N).
+      pk, phase, n | 1/m per coordinate (3N) | sqrt(kB T/m) (3N);
+    - ``dense`` (float32, (N, N, 4)): the pair table of kernel A, row j
+      column i the (qq, eps, rmin, full) of the pair {i, j}, zero on the
+      diagonal;
+    - ``slot_atom`` (nslot,) and ``atom_slots`` (int32, (N, K)): kernel A
+      writes each bonded term's per-atom contributions to slots (a bond's
+      a, b; an angle's a, b, c; a torsion's i, j, k, l; terms in itab
+      order), and sums atom a's slots in the order of row a, padded with
+      the zero slot ``nslot``.
     """
 
     def __init__(self, sys: MDSystem, T: float, gamma: float, dt: float):
@@ -99,6 +115,21 @@ class LangevinPlan:
                     ("vstd", self.vstd)]
         self.ftab = np.concatenate([a for _, a in segments]).astype(
             np.float32)
+
+        dense = np.zeros((n, n, 4), np.float32)
+        for k, a in enumerate((self.nb_qq, self.nb_eps, self.nb_rmin,
+                               self.nb_full)):
+            dense[ju, iu, k] = dense[iu, ju, k] = a.astype(np.float32)
+        self.dense = dense
+        self.slot_atom = np.concatenate([self.bonds.ravel(),
+                                         self.angles.ravel(),
+                                         self.dihs.ravel()]).astype(np.int64)
+        self.nslot = len(self.slot_atom)
+        lists = [np.flatnonzero(self.slot_atom == a) for a in range(n)]
+        self.K = max((len(x) for x in lists), default=0)
+        self.atom_slots = np.full((n, self.K), self.nslot, np.int32)
+        for a, x in enumerate(lists):
+            self.atom_slots[a, :len(x)] = x
         bounds = np.cumsum([0] + [len(a) for _, a in segments])
         self._slices = {name: slice(int(bounds[k]), int(bounds[k + 1]))
                         for k, (name, _) in enumerate(segments)}
@@ -117,6 +148,8 @@ class LangevinPlan:
             tabs = {name: ftab[sl] for name, sl in self._slices.items()}
             tabs.update(
                 itab=torch.as_tensor(self.itab, device=device), ftab=ftab,
+                dense=torch.as_tensor(self.dense, device=device),
+                atom_slots=torch.as_tensor(self.atom_slots, device=device),
                 pairs=torch.as_tensor(self.pairs, device=device),
                 bonds=torch.as_tensor(self.bonds, device=device),
                 angles=torch.as_tensor(self.angles, device=device),
@@ -147,6 +180,20 @@ def step_ops(plan: LangevinPlan) -> float:
                  + plan.nb * 14 + plan.na * 60 + plan.nd * 130 + r3 * 20)
 
 
+def kernel_ops(plan: LangevinPlan) -> float:
+    """Float operations per walker per MD step that kernel A executes:
+    ``step_ops`` with each pair computed a second time (the gather takes
+    each ordered pair, from both atoms' sides) and 3 additions per bonded
+    slot (each atom's list)."""
+    pair = 36 + (9 if plan.box is not None else 0)
+    return step_ops(plan) + float(plan.np * pair + 3 * plan.nslot)
+
+
+def blocks(nwalkers: int) -> int:
+    """Blocks kernel A starts for ``nwalkers`` walkers (one warp each)."""
+    return -(-int(nwalkers) // WARPS_PER_BLOCK)
+
+
 def bound_ms(plan: LangevinPlan, nwalkers: int, nsteps: int):
     """Least time on an H100 for ``nsteps`` steps of ``nwalkers`` walkers,
     and what bounds it: operations over the FP32 peak, or x and v read
@@ -174,35 +221,41 @@ def pair_delta(plan: LangevinPlan, X):
     return d, torch.sum(d * d, dim=-1) + 1e-12
 
 
-def forces_plain(plan: LangevinPlan, x):
-    """Forces (B, 3N) -> (B, 3N) by the kernel's per-term formulas."""
-    tb = plan.on(x.device)
-    B = x.shape[0]
-    X = x.reshape(B, plan.natoms, 3)
-    F = torch.zeros_like(X)
-
-    pi, pj = tb["pairs"][:, 0], tb["pairs"][:, 1]
-    d, r2 = pair_delta(plan, X)
-    inv_r2 = 1.0 / r2
+def _pair_forces(plan: LangevinPlan, d, r2, qq, eps, rmin, full,
+                 rsqrt=False):
+    """-dE/dd of pair rows (..., 3) from d = x_i - x_j, r^2 + 1e-12 and the
+    pair parameters: the TPU body's LJ + Coulomb, reaction field inside
+    the cutoff for unscaled pairs.  ``rsqrt`` takes 1/r from a reciprocal
+    square root, as kernel A does, instead of a division and a sqrt; the
+    cutoff is drawn on sqrt(r^2) either way."""
     r = torch.sqrt(r2)
-    x6 = (tb["rmin"] * tb["rmin"] * inv_r2) ** 3
-    g_lj = 6.0 * tb["eps"] * (x6 - x6 * x6) * inv_r2
-    g_c = tb["qq"] * (-0.5 * inv_r2 / r)
+    if rsqrt:
+        inv_r = torch.rsqrt(r2)
+        inv_r2 = inv_r * inv_r
+        g_c = qq * (-0.5 * inv_r2 * inv_r)
+    else:
+        inv_r2 = 1.0 / r2
+        g_c = qq * (-0.5 * inv_r2 / r)
+    x6 = (rmin * rmin * inv_r2) ** 3
+    g_lj = 6.0 * eps * (x6 - x6 * x6) * inv_r2
     if plan.use_rf:
-        w = (r < plan.rc).to(x.dtype)
-        rf = tb["full"] > 0
-        g_c = torch.where(rf, (g_c + tb["qq"] * plan.krf) * w, g_c)
+        w = (r < plan.rc).to(d.dtype)
+        rf = full > 0
+        g_c = torch.where(rf, (g_c + qq * plan.krf) * w, g_c)
         g_lj = torch.where(rf, g_lj * w, g_lj)
-    g = (2.0 * (g_lj + g_c))[..., None] * d
-    F.index_add_(1, pi, -g)
-    F.index_add_(1, pj, g)
+    return -(2.0 * (g_lj + g_c))[..., None] * d
 
+
+def _bonded_terms(plan: LangevinPlan, X):
+    """Per-term contributions of the bonded terms of (B, N, 3) positions,
+    each its term's per-atom force (B, T, 3), by the kernel's formulas:
+    ``(bond a, bond b, angle a, angle b, angle c, torsion i, j, k, l)``."""
+    tb = plan.on(X.device)
     a, b = tb["bonds"][:, 0], tb["bonds"][:, 1]
     d = X.index_select(1, a) - X.index_select(1, b)
     rb = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-12)
     g = (2.0 * tb["bk"] * (rb - tb["br0"]) / rb)[..., None] * d
-    F.index_add_(1, a, -g)
-    F.index_add_(1, b, g)
+    bond = (-g, g)
 
     a, b, c = tb["angles"].unbind(1)
     u = X.index_select(1, a) - X.index_select(1, b)
@@ -217,9 +270,7 @@ def forces_plain(plan: LangevinPlan, x):
     cu = (coef * inv_norm)[..., None]
     gu = cu * v - (coef * cs / uu)[..., None] * u
     gv = cu * u - (coef * cs / vv)[..., None] * v
-    F.index_add_(1, a, -gu)
-    F.index_add_(1, c, -gv)
-    F.index_add_(1, b, gu + gv)
+    angle = (-gu, gu + gv, -gv)
 
     i, j, k, l = tb["dihs"].unbind(1)
     b1 = X.index_select(1, j) - X.index_select(1, i)
@@ -239,10 +290,63 @@ def forces_plain(plan: LangevinPlan, x):
     p12 = (torch.sum(b1 * b2, dim=-1) / b2sq)[..., None]
     p32 = (torch.sum(b3 * b2, dim=-1) / b2sq)[..., None]
     g2 = -p12 * g1 - p32 * g3
-    F.index_add_(1, i, g1)
-    F.index_add_(1, j, g2 - g1)
-    F.index_add_(1, k, g3 - g2)
-    F.index_add_(1, l, -g3)
+    return bond + angle + (g1, g2 - g1, g3 - g2, -g3)
+
+
+def forces_plain(plan: LangevinPlan, x):
+    """Forces (B, 3N) -> (B, 3N) by the kernel's per-term formulas."""
+    tb = plan.on(x.device)
+    B = x.shape[0]
+    X = x.reshape(B, plan.natoms, 3)
+    F = torch.zeros_like(X)
+
+    d, r2 = pair_delta(plan, X)
+    g = _pair_forces(plan, d, r2, tb["qq"], tb["eps"], tb["rmin"],
+                     tb["full"])
+    F.index_add_(1, tb["pairs"][:, 0], g)
+    F.index_add_(1, tb["pairs"][:, 1], -g)
+
+    terms = _bonded_terms(plan, X)
+    b, a, t = tb["bonds"], tb["angles"], tb["dihs"]
+    atoms = (b[:, 0], b[:, 1], a[:, 0], a[:, 1], a[:, 2],
+             t[:, 0], t[:, 1], t[:, 2], t[:, 3])
+    # the order of the one-thread-per-walker kernel: angle a, c, then b
+    order = (0, 1, 2, 4, 3, 5, 6, 7, 8)
+    for k in order:
+        F.index_add_(1, atoms[k], terms[k])
+    return F.reshape(B, plan.dim)
+
+
+def forces_gather(plan: LangevinPlan, x):
+    """Forces (B, 3N) -> (B, 3N) in kernel A's order and with its pair
+    formulas: atom i's nonbonded force summed over partners j = 0..N-1
+    through the dense pair table (each pair from both sides, 1/r from
+    ``rsqrt``), then its bonded slots in the order of ``atom_slots``."""
+    tb = plan.on(x.device)
+    B, n = x.shape[0], plan.natoms
+    X = x.reshape(B, n, 3)
+    F = torch.zeros_like(X)
+    box = (torch.tensor(plan.box, dtype=X.dtype, device=X.device)
+           if plan.box is not None else None)
+    not_self = torch.ones(n, 1, dtype=torch.bool, device=X.device)
+    for j in range(n):
+        d = X - X[:, j:j + 1]
+        if box is not None:
+            d = d - box * torch.round(d * (1.0 / box))
+        r2 = torch.sum(d * d, dim=-1) + 1e-12
+        qq, eps, rmin, full = tb["dense"][j].unbind(-1)
+        g = _pair_forces(plan, d, r2, qq, eps, rmin, full, rsqrt=True)
+        not_self[j] = False
+        F = F + torch.where(not_self, g, 0.0)
+        not_self[j] = True
+    terms = _bonded_terms(plan, X)
+    slots = torch.cat([torch.stack(terms[0:2], dim=2).reshape(B, -1, 3),
+                       torch.stack(terms[2:5], dim=2).reshape(B, -1, 3),
+                       torch.stack(terms[5:9], dim=2).reshape(B, -1, 3),
+                       X.new_zeros(B, 1, 3)], dim=1)
+    G = slots[:, tb["atom_slots"].long()]            # (B, N, K, 3)
+    for k in range(plan.K):
+        F = F + G[:, :, k]
     return F.reshape(B, plan.dim)
 
 
@@ -284,6 +388,14 @@ def _check_card(x, plan, name):
                                   f"atoms, not {plan.natoms}")
 
 
+def _table_args(plan: LangevinPlan, tb: dict):
+    """Kernel A's table pointers: itab, ftab, the dense pair table, the
+    per-atom slot lists and their width K."""
+    return [tb["itab"].data_ptr(), tb["ftab"].data_ptr(),
+            tb["dense"].data_ptr(), tb["atom_slots"].data_ptr(),
+            ctypes.c_int(plan.K)]
+
+
 class CudaKernel:
     """A lazily built ``csrc`` library (``name``, ``source``) and the launch
     counter of one of its entry points.  Subclasses declare the C
@@ -320,10 +432,11 @@ class _LangevinLib(CudaKernel):
 
     def _declare(self, lib):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lm_forces.argtypes = [p, p, i, p, p] + GEOMETRY_ARGTYPES + [p]
+        lib.lm_forces.argtypes = [p, p, i, p, p, p, p, i] + \
+            GEOMETRY_ARGTYPES + [p]
         lib.lm_forces.restype = i
         lib.lm_langevin_middle.argtypes = (
-            [p, p, i, p, p] + GEOMETRY_ARGTYPES
+            [p, p, i, p, p, p, p, i] + GEOMETRY_ARGTYPES
             + [i, ctypes.c_ulonglong, i, f, f, f, p])
         lib.lm_langevin_middle.restype = i
 
@@ -342,8 +455,8 @@ class Forces(_LangevinLib):
         tb = plan.on(x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lm_forces(x.data_ptr(), f.data_ptr(), x.shape[0],
-                            tb["itab"].data_ptr(), tb["ftab"].data_ptr(),
-                            *plan.geometry_args(), stream)
+                            *_table_args(plan, tb), *plan.geometry_args(),
+                            stream)
         self._raise(err, "forces")
         self.launches += 1
         return f
@@ -372,9 +485,9 @@ class LangevinMiddle(_LangevinLib):
         tb = plan.on(x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lm_langevin_middle(
-            x.data_ptr(), v.data_ptr(), x.shape[0], tb["itab"].data_ptr(),
-            tb["ftab"].data_ptr(), *plan.geometry_args(), int(nsteps), seed,
-            int(bool(noise)), plan.dt, plan.a, plan.b, stream)
+            x.data_ptr(), v.data_ptr(), x.shape[0], *_table_args(plan, tb),
+            *plan.geometry_args(), int(nsteps), seed, int(bool(noise)),
+            plan.dt, plan.a, plan.b, stream)
         self._raise(err, "langevin_middle")
         self.launches += 1
         return x, v

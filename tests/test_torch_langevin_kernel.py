@@ -5,6 +5,7 @@ kernel itself is held against the plain version on the card by
 ``chip_smoke.py``."""
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -13,18 +14,24 @@ import pytest
 import torch
 
 import isokann_tpu as itk
+from isokann_tpu.md.forces import force_flat as jax_force_flat
 from isokann_tpu.md.pallas_md import PallasMDPlan, langevin_middle_fused
+from isokann_tpu.md.system import build_system as jax_build_system
 from isokann_tpu.utils.flops import fused_md_flops
 
 import isokann_tpu_torch as itt
 from isokann_tpu_torch.md import integrators as I
 from isokann_tpu_torch.md import langevin_kernel as LK
+from isokann_tpu_torch.md.fixtures import alanine_dipeptide_pdb
 from isokann_tpu_torch.md.forces import force_flat
+from isokann_tpu_torch.md.system import build_system
 
 # small tensor ops: one intra-op thread each; several test workers
 # share the machine and oversubscribed threads slow them 50x
 torch.set_num_threads(1)
 
+GOLDEN = os.path.join(os.path.dirname(__file__), "..", "data", "golden",
+                      "ala2_vacuum_msm.npz")
 
 
 @pytest.fixture(scope="module")
@@ -129,3 +136,57 @@ def test_step_ops_is_the_vector_part_of_fused_md_flops(jsim, sim):
     assert LK.step_ops(sim.plan) == ref
     ms, by = LK.bound_ms(sim.plan, 512, 100)
     assert by == "operations" and ms > 0
+
+
+@pytest.mark.parametrize("method", ["NoCutoff", "CutoffPeriodic"])
+def test_gather_order_matches_plain_and_jax(method):
+    """Kernel A's force routine in its own order (the nonbonded force of
+    each atom gathered over its partners through the dense pair table, then
+    its bonded slots through its list) on frames of the golden alanine
+    run, in vacuum and with the periodic reaction field: 1e-6 of max |F|
+    from the plain version, 1e-5 from the JAX package's ``force_flat``."""
+    pdb = alanine_dipeptide_pdb()
+    jsys = jax_build_system(pdb, method=method)
+    tsys = build_system(pdb, method=method)
+    plan = LK.LangevinPlan(tsys, 310.0, 1.0, 0.002)
+    assert (plan.box is not None) == (method == "CutoffPeriodic")
+    xs = np.load(GOLDEN)["xs"][::256][:6]
+    x = torch.as_tensor(xs)
+    f_gather = LK.forces_gather(plan, x).numpy()
+    f_plain = LK.forces_plain(plan, x).numpy()
+    f_jax = np.asarray(jax_force_flat(jsys, jnp.asarray(xs)))
+    scale = np.abs(f_jax).max()
+    assert np.abs(f_gather - f_plain).max() / np.abs(f_plain).max() < 1e-6
+    assert np.abs(f_gather - f_jax).max() / scale < 1e-5
+
+
+def test_kernel_tables(sim):
+    """The dense pair table holds each pair's (qq, eps, rmin, full) at [j, i]
+    and [i, j] and zeros on the diagonal; every bonded slot is in exactly
+    one atom's list, the atom it acts on, in ascending order."""
+    plan = sim.plan
+    n = plan.natoms
+    iu, ju = plan.pairs[:, 0], plan.pairs[:, 1]
+    want = np.stack([plan.nb_qq, plan.nb_eps, plan.nb_rmin, plan.nb_full],
+                    axis=-1).astype(np.float32)
+    np.testing.assert_array_equal(plan.dense[ju, iu], want)
+    np.testing.assert_array_equal(plan.dense[iu, ju], want)
+    assert not plan.dense[np.arange(n), np.arange(n)].any()
+    assert plan.nslot == 2 * plan.nb + 3 * plan.na + 4 * plan.nd
+    listed = plan.atom_slots[plan.atom_slots < plan.nslot]
+    np.testing.assert_array_equal(np.sort(listed), np.arange(plan.nslot))
+    for a, row in enumerate(plan.atom_slots):
+        row = row[row < plan.nslot]
+        assert np.all(np.diff(row) > 0) and np.all(plan.slot_atom[row] == a)
+
+
+def test_kernel_ops_and_blocks(sim):
+    """Kernel A executes each pair twice (the gather) and sums the slots:
+    between 1x and 2x the function's operations; a warp per walker, four
+    walkers a block."""
+    plan = sim.plan
+    ratio = LK.kernel_ops(plan) / LK.step_ops(plan)
+    assert 1.0 < ratio < 2.0
+    assert LK.kernel_ops(plan) - LK.step_ops(plan) == \
+        plan.np * 45 + 3 * plan.nslot
+    assert [LK.blocks(b) for b in (1, 4, 5, 512)] == [1, 1, 2, 128]

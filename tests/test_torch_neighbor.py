@@ -18,6 +18,7 @@ from isokann_tpu.md.ewald import ewald_alpha as jax_ewald_alpha
 
 import isokann_tpu_torch as itt
 from isokann_tpu_torch.md import forces as F
+from isokann_tpu_torch.md import langevin_kernel as LK
 from isokann_tpu_torch.md import neighbor as NB
 from isokann_tpu_torch.md import neighbor_kernel as NK
 
@@ -257,16 +258,272 @@ def test_wrapper_on_other_devices_and_shapes(sims, xb):
 
 def test_operation_counts(sims, xb):
     """The bound's operations: 63 an unordered pair in cutoff with the
-    reaction field; the kernel visits every slot pair of the full stencil
+    reaction field; the kernel tests the records its culling keeps (more
+    than the pairs in range, fewer than every slot of the full stencil)
     and computes each pair in range from both sides."""
     _, ts = sims
     plan = ts.nbplan
-    in_range, visited = NK.pair_counts(ts.system, plan,
-                                       torch.as_tensor(xb[:1]))
-    assert 0 < 2 * in_range < visited
+    in_range, visited, culls = NK.pair_counts(ts.system, plan,
+                                              torch.as_tensor(xb[:1]))
     live = ts.system.natoms
-    assert visited == live * plan.full.shape[1] * plan.C
+    assert 0 < 2 * in_range < visited < live * plan.full.shape[1] * plan.C
+    assert culls > 0
     assert NK.step_ops(in_range) == 63 * in_range
-    assert NK.kernel_ops(in_range, visited) > NK.step_ops(in_range)
+    assert NK.kernel_ops(in_range, visited, culls) > NK.step_ops(in_range)
     ms, by = NK.bound_ms(plan, 64, 64 * in_range)
     assert by == "operations" and ms > 0
+
+
+def _kernel_layout(sims, kw):
+    _, ts = sims
+    _, tp = _plans(sims, **kw)
+    return ts.system, tp
+
+
+@pytest.mark.parametrize("kw", [{}, dict(cells=(3, 3, 3)),
+                                dict(capacity=8)])
+def test_kernel_records_reorder_the_plans_slots(sims, xb, kw):
+    """The kernel's layout holds, in each cell, exactly the atoms the plan
+    keeps (a full cell drops the same atoms), ordered by serpentine
+    sub-cell rank, empty slots last and padded to whole tiles; each tile's
+    box bounds its live atoms and counts them."""
+    sys, tp = _kernel_layout(sims, kw)
+    x = torch.as_tensor(xb)
+    plain, _ = NK.slot_records(sys, tp, x)
+    rec, boxes = NK.kernel_records(sys, tp, x)
+    T = NK.tiles(tp)
+    assert rec.shape == (2, tp.ncells, T * NK.TILE, 8) and T * NK.TILE >= tp.C
+    assert boxes.shape == (2, tp.ncells, T, 8)
+    ids_p = plain.view(torch.int32)[..., 6]
+    ids_k = rec.view(torch.int32)[..., 6]
+    for b in range(2):
+        for c in range(tp.ncells):
+            kept = ids_p[b, c][ids_p[b, c] >= 0]
+            row = ids_k[b, c]
+            nl = int((row >= 0).sum())
+            assert bool((row[:nl] >= 0).all()) and bool((row[nl:] < 0).all())
+            assert torch.equal(torch.sort(row[:nl])[0], torch.sort(kept)[0])
+    st = NK._sub_table(tp, sys.cutoff, "cpu")
+    sub = torch.floor(rec[..., 0:3] * st["scale"]
+                      - st["corner"][:, None, :]).long()
+    sub = torch.clamp(sub, min=torch.zeros_like(st["top"]), max=st["top"])
+    rank = torch.where(ids_k >= 0, st["rank"][(sub * st["stride"]).sum(-1)],
+                       10 ** 9)
+    assert bool((rank[..., 1:] >= rank[..., :-1]).all())
+    assert sorted(st["rank"].tolist()) == list(range(len(st["rank"])))
+    xyz = rec[..., 0:3].reshape(2, tp.ncells, T, NK.TILE, 3)
+    live = (ids_k >= 0).reshape(2, tp.ncells, T, NK.TILE)
+    np.testing.assert_array_equal(boxes[..., 3].numpy(),
+                                  live.sum(-1).numpy())
+    lo, hi = boxes[..., None, 0:3], boxes[..., None, 4:7]
+    inside = (xyz >= lo).all(-1) & (xyz <= hi).all(-1)
+    assert bool(inside[live].all())
+    if kw.get("capacity") == 8:
+        assert tp.overflow(xb) > 0
+
+
+@pytest.mark.parametrize("kw,ewald", [({}, False), ({}, True),
+                                      (dict(cells=(3, 3, 3)), False),
+                                      (dict(cells=(3, 3, 3)), True)])
+def test_culled_tiles_cover_every_pair(sims, xb, kw, ewald):
+    """Every pair within the cutoff that the function computes lies in an
+    (i tile, j tile) pair that survives the kernel's box test, and its j
+    record passes the record test: the forces summed over the surviving
+    records alone, in the kernel's layout, equal the plain sweep (1e-6 of
+    max |F|), with the reaction field and with erfc."""
+    sys, tp = _kernel_layout(sims, kw)
+    alpha = NB.ewald_alpha(sys.cutoff, 5e-4) if ewald else None
+    x = torch.as_tensor(xb[:1])
+    rec, boxes = NK.kernel_records(sys, tp, x)
+    rec, boxes = rec[0], boxes[0]
+    Cp = rec.shape[1]
+    keep = {s: k for s, _, k in NK.surviving_tiles(sys, tp, rec, boxes)}
+    full = torch.as_tensor(tp.full, dtype=torch.long)
+    acc = torch.zeros(tp.ncells * Cp, 3, dtype=torch.float64)
+    n_pairs = 0
+    for islot, d, r2, qiqj, rmin, epsij, jslot in NK._pairs(sys, tp, rec):
+        c, a, cj, bj = islot // Cp, islot % Cp, jslot // Cp, jslot % Cp
+        col = (full[c] == cj[:, None]).long().argmax(1)
+        ok = torch.zeros_like(c, dtype=torch.bool)
+        for s in col.unique().tolist():
+            m = col == s
+            ok[m] = keep[s][c[m], a[m] // NK.TILE, bj[m] // NK.TILE,
+                            bj[m] % NK.TILE]
+        assert bool(ok.all())
+        n_pairs += int(ok.sum())
+        f = NK.pair_force(sys, d[ok], r2[ok], qiqj[ok], rmin[ok], epsij[ok],
+                          alpha)
+        acc.index_add_(0, islot[ok], f.double())
+    assert n_pairs > 0
+    oid = rec.view(torch.int32)[..., 6].reshape(-1).long()
+    out = torch.zeros(tp.natoms + 1, 3, dtype=torch.float64)
+    out[torch.where(oid >= 0, oid, tp.natoms)] = acc
+    ref = NK.neighbor_sweep_plain(sys, tp, x, alpha)[0].reshape(-1, 3)
+    assert _rel(out[:-1].float().numpy(), ref.numpy()) < 1e-6
+
+
+def test_visited_matches_brute_force(sims, xb):
+    """``pair_counts``' slot tests equal a count tile pair by tile pair:
+    boxes from the live records, the box test and the record test as the
+    kernel makes them, a live i slot against each record kept."""
+    sys, tp = _kernel_layout(sims, {})
+    x = torch.as_tensor(xb[:1])
+    _, visited, culls = NK.pair_counts(sys, tp, x)
+    rec, _ = NK.kernel_records(sys, tp, x)
+    rec = rec[0]
+    T = NK.tiles(tp)
+    xyz = rec[..., 0:3].reshape(tp.ncells, T, NK.TILE, 3)
+    live = (rec.view(torch.int32)[..., 6] >= 0).reshape(tp.ncells, T,
+                                                         NK.TILE)
+    box = torch.as_tensor(tp.box, dtype=torch.float32)
+    rc2 = sys.cutoff * sys.cutoff
+
+    def gap2(d, h):
+        d = d - box * torch.round(d / box)
+        return float((torch.clamp(d.abs() - h - NK.SLACK, min=0.0) ** 2)
+                     .sum(-1))
+
+    def extent(c, t):
+        p = xyz[c, t][live[c, t]]
+        lo, hi = p.min(0).values, p.max(0).values
+        return 0.5 * (lo + hi), 0.5 * (hi - lo)
+
+    count = tests = 0
+    for c in range(tp.ncells):
+        for ti in range(T):
+            ni = int(live[c, ti].sum())
+            if ni == 0:
+                continue
+            ci, hi_ = extent(c, ti)
+            for cj in tp.full[c].tolist():
+                tests += T
+                for tj in range(T):
+                    nj = int(live[cj, tj].sum())
+                    if nj == 0:
+                        continue
+                    cj_, hj = extent(cj, tj)
+                    if not gap2(ci - cj_, hi_ + hj) < rc2:
+                        continue
+                    tests += nj
+                    for q in range(nj):
+                        if gap2(ci - xyz[cj, tj, q], hi_) < rc2:
+                            count += ni
+    assert (visited, culls) == (count, tests)
+
+
+def test_kernel_blocks_fill_the_card_at_one_walker(sims):
+    """One block per (cell, 32-slot tile, walker): a cell of capacity C
+    gives ceil(C / 32) tiles."""
+    _, ts = sims
+    plan = ts.nbplan
+    assert NK.tiles(plan) == -(-plan.C // 32)
+    assert NK.blocks(plan, 1) == plan.ncells * NK.tiles(plan)
+    assert NK.blocks(plan, 64) == 64 * NK.blocks(plan, 1)
+
+
+def _layout_by_ranking(sys, plan, x):
+    """The layout kernel's algorithm for one walker (n, 3) in numpy: each
+    atom's cell and sub-cell rank by the kernel's float32 operations, the
+    atoms of each cell ranked in index order (a cell keeps its first C),
+    the kept atoms of each (cell, sub-cell) ranked in index order, records
+    at the sub-cell's offset plus that rank.  Returns the records (slots
+    behind a cell's kept atoms left zero: the kernel writes none) and the
+    (ncells, T * 32) mask of the slots written."""
+    f32 = np.float32
+    st = NK._sub_table(plan, sys.cutoff, "cpu")
+    ns, rank_of = st["ns"], st["rank"].numpy()
+    box, cell = plan.box.astype(f32), plan.cell.astype(f32)
+    scale = (ns / plan.cell).astype(f32)
+    xw = x - box * np.floor(x / box)
+    cd = np.minimum(np.maximum((xw / cell).astype(np.int64), 0), plan.nc - 1)
+    cid = (cd[:, 0] * plan.nc[1] + cd[:, 1]) * plan.nc[2] + cd[:, 2]
+    sd = np.floor(xw * scale - (cd * ns).astype(f32)).astype(np.int64)
+    sd = np.minimum(np.maximum(sd, 0), ns - 1)
+    key = rank_of[(sd[:, 0] * ns[1] + sd[:, 1]) * ns[2] + sd[:, 2]]
+    nsub, T = int(np.prod(ns)), NK.tiles(plan)
+    cnt = np.zeros(plan.ncells, int)
+    cnt2 = np.zeros((plan.ncells, nsub), int)
+    rank = np.full(len(x), -1)
+    for a in range(len(x)):
+        c = cid[a]
+        if cnt[c] < plan.C:
+            rank[a] = cnt2[c, key[a]]
+            cnt2[c, key[a]] += 1
+        cnt[c] += 1
+    start = np.cumsum(cnt2, axis=1) - cnt2
+    _, tab = NK._atom_table(sys, plan, "cpu")
+    tab = tab.numpy()
+    rec = np.zeros((plan.ncells, T * NK.TILE, 8), f32)
+    written = np.zeros((plan.ncells, T * NK.TILE), bool)
+    for a in np.flatnonzero(rank >= 0):
+        slot = start[cid[a], key[a]] + rank[a]
+        rec[cid[a], slot] = np.concatenate([xw[a], tab[a]])
+        written[cid[a], slot] = True
+    return rec, written
+
+
+@pytest.mark.parametrize("kw", [{}, dict(cells=(3, 3, 3)),
+                                dict(capacity=8)])
+def test_ranking_layout_matches_kernel_records(sims, xb, kw):
+    """The layout kernel's ranking (no sort) writes exactly the live slots
+    of ``kernel_records`` and gives their bits, also where full cells drop
+    atoms."""
+    sys, tp = _kernel_layout(sims, kw)
+    rec, boxes = NK.kernel_records(sys, tp, torch.as_tensor(xb[:1]))
+    want, written = _layout_by_ranking(sys, tp, xb[0].reshape(-1, 3))
+    live = NK.live_slots(boxes[0]).numpy()
+    np.testing.assert_array_equal(live, written)
+    np.testing.assert_array_equal(rec[0].numpy()[live].view(np.int32),
+                                  want[live].view(np.int32))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(capacity=8)])
+def test_layout_bound_counts_the_kept_records(sims, xb, kw):
+    """The layout's bound moves the coordinates, the per-atom table, one
+    record for each atom the plan keeps and the tile boxes: no record for
+    an empty slot or a dropped atom."""
+    sys, tp = _kernel_layout(sims, kw)
+    x = torch.as_tensor(xb)
+    _, boxes = NK.kernel_records(sys, tp, x)
+    kept = tp.natoms * x.shape[0] - int(NK.slot_records(sys, tp, x)[1].sum())
+    assert int(boxes[..., 3].sum()) == kept
+    nbytes = (x.shape[0] * (12 * tp.natoms + 32 * tp.ncells * NK.tiles(tp))
+              + 32 * kept + 20 * (tp.natoms + 1))
+    ms, by = NK.layout_bound_ms(tp, boxes)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * nbytes / LK.H100_HBM_BYTES_PER_S,
+                               rel=1e-12)
+
+
+def test_sweep_launch_checks_its_inputs(sims, xb):
+    """The sweep alone takes only float32 CUDA tensors of the plan's
+    shapes: CPU records, or records of another shape, raise before any
+    launch."""
+    _, ts = sims
+    x = torch.as_tensor(xb)
+    rec, boxes = NK.kernel_records(ts.system, ts.nbplan, x)
+    n0 = NK.neighbor_sweep.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        NK.neighbor_sweep.launch(ts.system, ts.nbplan, rec, boxes)
+    with pytest.raises(ValueError, match="shape"):
+        NK.neighbor_sweep.launch(ts.system, ts.nbplan, rec[:, :, :32],
+                                 boxes)
+    assert NK.neighbor_sweep.launches == n0
+
+
+def test_layout_wrapper_dispatch(sims, xb):
+    """On a CPU tensor ``neighbor_layout`` is ``kernel_records`` and counts
+    no launch; another device raises; a wrong shape raises."""
+    _, ts = sims
+    x = torch.as_tensor(xb)
+    n0 = NK.neighbor_layout.launches
+    rec, boxes = NK.neighbor_layout(ts.system, ts.nbplan, x)
+    want = NK.kernel_records(ts.system, ts.nbplan, x)
+    # ids and bits are int32 bit patterns (an empty slot's id -1 is a NaN)
+    assert torch.equal(rec.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(boxes, want[1])
+    assert NK.neighbor_layout.launches == n0
+    with pytest.raises(NotImplementedError, match="meta"):
+        NK.neighbor_layout(ts.system, ts.nbplan, x.to("meta"))
+    with pytest.raises(ValueError):
+        NK.neighbor_layout(ts.system, ts.nbplan, x[:, :9])
