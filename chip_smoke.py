@@ -52,11 +52,15 @@ port's entry points:
 
 It times the kernels: E whole (its ``ms``, layout and sweep, as an MD
 step pays it) and its sweep alone (``sweep_ms``), and E's layout kernel
-against ``kernel_records``, its plain version.  Each phase prints
-one line; any failed check exits non-zero.  The last two lines are a JSON
-list of the kernels (launches on their path, error against the plain
-version, times, bound) and ``{"ok": true, "device": {...}}``.  Needs one
-CUDA GPU; exits 2 without one.  Imports nothing of JAX.
+against ``kernel_records``, its plain version; D also on villin.  Besides
+each kernel against its plain version, it holds that a walker's result
+does not depend on the batch: row 0 of a batch equals the walker alone,
+bit for bit, for D (B=37 and 1024) and B (B=256, noiseless and noisy).
+Each phase prints one line; any failed check exits non-zero.  The last
+two lines are a JSON list of the kernels (launches on their path, error
+against the plain version, times, bound) and ``{"ok": true, "device":
+{...}}``.  Needs one CUDA GPU; exits 2 without one.  Imports nothing of
+JAX.
 """
 
 import json
@@ -134,6 +138,9 @@ def main():
     import isokann_tpu_torch as itt
     from isokann_tpu_torch.md.fixtures import peptide_pdb
     from isokann_tpu_torch.md import forces as F
+    from isokann_tpu_torch.md.pdbio import read_pdb
+    from isokann_tpu_torch.models import densenet
+    from isokann_tpu_torch.md.system import build_system
     from isokann_tpu_torch.md import gb_kernel as GB
     from isokann_tpu_torch.md import girsanov_kernel as GK
     from isokann_tpu_torch.md import integrators as I
@@ -382,6 +389,54 @@ def main():
                 f"noiseless Girsanov ABOBA vs plain at B={b}")
         gerr = max(gerr, ae)
 
+    # a chi model too large to stage in shared memory (231-1024-1, 0.95 MB
+    # of weights) is read from device memory by the same routines
+    wm = densenet([nfeat, 1024, 1], layernorm=True, gen=15).to(dev)
+    wplan = GK.GirsanovPlan.for_model(plan, wm, FS)
+    xu = x[:37].contiguous()
+    pu = sim.random_velocities(itt.make_generator(16), xu.shape) \
+        * sim.masses3
+    fu = torch.sqrt(LK.pair_delta(plan, xu.reshape(37, -1, 3))[1])
+    (c_k, g_k), (c_p, g_p) = (GK.chi_grad(wplan, wm, fu),
+                              GK.chi_grad_plain(wplan, wm, fu))
+    crel = float((c_k - c_p).abs().max() / c_p.abs().max())
+    grel = float((g_k - g_p).abs().max() / g_p.abs().max())
+    qk, pk, lk = GK.aboba_girsanov(wplan, wm, xu, pu, NS, BB, QRATE,
+                                   NS * sim.step, gen, noise=False)
+    qp, pp, lp = GK.aboba_girsanov_plain(wplan, wm, xu, pu, NS, BB, QRATE,
+                                         NS * sim.step, noise=False)
+    qrel = float((qk - qp).abs().max() / qp.abs().max())
+    prel = float((pk - pp).abs().max() / pp.abs().max())
+    lrel = float((lk - lp).abs().max() / lp.abs().max())
+    print(f"  unstaged chi model 231-1024-1 B=37: chi rel {crel:.3e} (tol "
+          f"1e-5), dchi/df rel {grel:.3e} (tol 1e-4); noiseless x{NS}: rel q "
+          f"{qrel:.3e} (tol 1e-5), rel p {prel:.3e}, rel logw {lrel:.3e} "
+          f"(tol 1e-4)")
+    require(crel < 1e-5 and grel < 1e-4, "chi_grad vs autograd, unstaged")
+    require(qrel < 1e-5 and prel < 1e-4 and lrel < 1e-4,
+            "noiseless Girsanov ABOBA vs plain, unstaged chi model")
+
+    # a walker's bits do not depend on the batch (one warp a walker)
+    p256 = sim.random_velocities(itt.make_generator(12), (256, sim.dim)) \
+        * sim.masses3
+    for noise in (False, True):
+        r256 = GK.aboba_girsanov(gplan, gm, x[:256].contiguous(), p256, 20,
+                                 BB, QRATE, 0.04, itt.make_generator(8),
+                                 noise=noise)
+        r1 = GK.aboba_girsanov(gplan, gm, x[:1].contiguous(),
+                               p256[:1].contiguous(), 20, BB, QRATE, 0.04,
+                               itt.make_generator(8), noise=noise)
+        require(all(torch.equal(a[:1], b) for a, b in zip(r256, r1)),
+                f"Girsanov kernel: row 0 of B=256 equals B=1 bit for bit "
+                f"(noise={noise})")
+    kops_b, sops_b = GK.kernel_ops(gplan), GK.step_ops(gplan)
+    print(f"  aboba_girsanov: row 0 of B=256 equals B=1 bit for bit, "
+          f"noiseless and noisy; operations a walker-step: {sops_b:.0f} the "
+          f"function needs (the bound's), {kops_b:.0f} the kernel executes "
+          f"({kops_b / sops_b:.2f}x); blocks {GK.blocks(1)} at B=1, "
+          f"{GK.blocks(256)} at B=256 (a warp per walker, "
+          f"{LK.WARPS_PER_BLOCK} a block)")
+
     # martingale: E[w] = 1 under the trained chi's optimal-control bias.
     # The 4-sigma band of a sample mean tests E[w] = 1 only while the
     # log-weights' variance stays below ~1.  The quickstart chi is steep:
@@ -429,8 +484,8 @@ def main():
                            itt.make_generator(7))
     require(all(torch.equal(a, b) for a, b in zip(r1, r2)),
             "Girsanov kernel: same seed gives the same bits")
-    phase("girsanov_vs_plain", t0, "chi_grad, noiseless, martingale, "
-                                   "determinism")
+    phase("girsanov_vs_plain", t0, "chi_grad, noiseless, row 0 at B=256, "
+                                   "martingale, determinism")
 
     # ---- 7. Girsanov path ----------------------------------------------------
     t0 = time.perf_counter()
@@ -487,7 +542,8 @@ def main():
         bb, _ = GK.bound_ms(mplan, b, 100)
         print(f"  aboba_girsanov B={b} x100 steps: {gtimes[b]:.3f} ms, "
               f"{b * 100 / (gtimes[b] * 1e-3):.4g} walker-steps/s, bound "
-              f"{bb:.4f} ms ({bb / gtimes[b]:.2%} of it) {stamp}")
+              f"{bb:.4f} ms ({bb / gtimes[b]:.2%} of it), {GK.blocks(b)} "
+              f"blocks {stamp}")
     xb, pb = xm[:256].contiguous(), pm[:256].contiguous()
     g_plain_ms = cuda_ms(lambda: GK.aboba_girsanov_plain(
         mplan, spec["model"], xb, pb, 100, spec["b"], spec["qrate"],
@@ -602,6 +658,38 @@ def main():
                             GB.gb_force(s.gbplan, xg)),
                 f"gb_force {label}: the same input gives the same bits")
 
+    # villin HP35 (588 atoms, 19 tiles), the largest system of the paths
+    vgplan = GB.GBPlan(build_system(vpdb, implicit="obc2"))
+    require(vgplan.A == 588, "villin plan: 588 atoms")
+    xv0 = torch.as_tensor(read_pdb(vpdb).coords.reshape(1, -1),
+                          dtype=torch.float32, device=dev)
+    xvg = (xv0 + torch.as_tensor(rng.normal(scale=0.005, size=(37,
+                                                               vgplan.dim)),
+                                 dtype=torch.float32, device=dev))
+    for b in (1, 37):
+        xb = xvg[:b].contiguous()
+        f_k = GB.gb_force(vgplan, xb)
+        f_p = GB.gb_force_plain(vgplan, xb)
+        rel = float((f_k - f_p).abs().max() / f_p.abs().max())
+        gb_err = max(gb_err, float((f_k - f_p).abs().max()))
+        print(f"  gb_force OBC2 villin B={b}: max rel err {rel:.3e} (tol "
+              f"1e-5), max |F| {float(f_p.abs().max()):.1f}")
+        require(rel < 1e-5, f"gb_force vs plain, villin, B={b}")
+    # a walker's forces are the same bits at every batch size
+    xtg = (tsim.coords[None] + torch.as_tensor(
+        rng.normal(scale=0.005, size=(37, tsim.dim)), dtype=torch.float32,
+        device=dev)).contiguous()
+    for label, gp, xs in (("trp-cage", tsim.gbplan, xtg),
+                          ("villin", vgplan, xvg)):
+        f1 = GB.gb_force(gp, xs[:1].contiguous())
+        f37 = GB.gb_force(gp, xs)
+        f1024 = GB.gb_force(gp, xs[:1].expand(1024, -1).contiguous())
+        require(torch.equal(f37[:1], f1) and torch.equal(f1024[:1], f1),
+                f"gb_force {label}: row 0 of B=37 and of B=1024 equals B=1 "
+                f"bit for bit")
+    print("  gb_force: row 0 of B=37 and of B=1024 equals B=1 bit for bit "
+          "(trp-cage, villin)")
+
     # minimum image: the bundled alanine (CutoffPeriodic reaction field,
     # box from its PDB), each atom moved by -1, 0 or 1 box lengths per
     # axis, so that the image changes pairs across a wrap
@@ -692,7 +780,8 @@ def main():
     require(abs(temp_a - temp) / temp < 0.01,
             "alanine: plain recursion and kernel A at the same temperature")
     phase("gb_vs_plain", t0, "OBC2, vacuum RF and periodic RF at B=1/37/256, "
-                             "same bits, noiseless steps, temperature")
+                             "villin at B=1/37, same bits, row 0 at "
+                             "B=37/1024, noiseless steps, temperature")
 
     # ---- 11. gb_force timing ---------------------------------------------------
     t0 = time.perf_counter()
@@ -710,9 +799,28 @@ def main():
         xb = tsim.coords[None].expand(b, tsim.dim).contiguous()
         d_plain[b] = cuda_ms(lambda: GB.gb_force_plain(plan, xb), reps=3)
     d_bms, d_by = GB.bound_ms(plan, 1024)
-    print(f"  gb_force OBC2 operations a walker: {GB.step_ops(plan):.0f} the "
-          f"function needs (the bound's), {GB.kernel_ops(plan):.0f} the "
-          f"kernel executes")
+    kops_d, sops_d = GB.kernel_ops(plan), GB.step_ops(plan)
+    nbl, ncl = GB.blocks(plan, 1)
+    print(f"  gb_force OBC2 operations a walker: {sops_d:.0f} the function "
+          f"needs (each unordered pair once; the bound's), {kops_d:.0f} the "
+          f"kernel executes ({kops_d / sops_d:.3f}x), "
+          f"{GB.step_ops(plan, ordered=True):.0f} by PR 7-10's ordered-pair "
+          f"count (bound at B=1024 {GB.bound_ms(plan, 1024, True)[0]:.4f} "
+          f"ms, {GB.bound_ms(plan, 1024, True)[0] / d_ms[1024]:.2%} of the "
+          f"time); {GB.tiles(plan)} tiles, {len(GB.tile_pairs(plan))} tile "
+          f"pairs; {nbl} blocks in {ncl} cluster at B=1 "
+          f"({GB.launch_shape(plan)[1]} warps a block), "
+          f"{GB.gb_force.max_clusters(plan)} clusters resident at once; "
+          f"villin {GB.blocks(vgplan, 1)[0]} blocks a walker, "
+          f"{GB.gb_force.max_clusters(vgplan)} clusters at once")
+    dv_ms = {}
+    for b in (1, 32):
+        xb = xv0.expand(b, -1).contiguous()
+        dv_ms[b] = cuda_ms(lambda: GB.gb_force(vgplan, xb), reps=20)
+        bb, by = GB.bound_ms(vgplan, b)
+        print(f"  gb_force OBC2 villin (588 atoms) B={b}: {dv_ms[b]:.4f} ms, "
+              f"bound {bb:.4f} ms ({by}, {bb / dv_ms[b]:.2%} of it), "
+              f"{GB.blocks(vgplan, b)[0]} blocks {stamp}")
     vb = vsim.coords[None].expand(1024, vsim.dim).contiguous()
     v_ms = cuda_ms(lambda: GB.gb_force(vsim.gbplan, vb), reps=20)
     x1 = tsim.coords[None].contiguous()

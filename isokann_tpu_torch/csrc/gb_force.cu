@@ -1,93 +1,147 @@
 // Nonbonded + OBC2 generalized-Born forces of a medium system (64 < A <= 640
-// atoms), one CUDA block per walker and one thread per atom.
+// atoms): one thread-block cluster per walker, each unordered pair visited
+// once, as a 32 x 32 tile pair.
 //
 // Replaces the TPU kernel isokann_tpu/md/pallas_gb.py:gb_force_pallas (its
-// inner body _force_one_walker; the opt-in _force_one_walker_tri computes the
-// same function in an upper-triangle tiling).  It computes that function:
-// all-pairs LJ + Coulomb with the exclusion / 1-4 scales (the LJ scale
-// derived from the Coulomb one: 0 -> 0, >= 0.999 -> 1, else 0.5), NoCutoff or
-// reaction field inside the cutoff, minimum image when periodic, and the
-// OBC2 GBSA force in three passes:
+// inner body _force_one_walker, and the same function in the upper-triangle
+// tiling of _force_one_walker_tri, whose algebra this kernel follows).  It
+// computes that function: all-pairs LJ + Coulomb with the exclusion / 1-4
+// scales (the LJ scale derived from the Coulomb one: 0 -> 0, >= 0.999 -> 1,
+// else 0.5), NoCutoff or reaction field inside the cutoff, minimum image
+// when periodic, and the OBC2 GBSA force in three passes:
 //   1. Born radii: HCT descreening sums I_i = sum_j I_ij, then
 //      B_i = 1 / (1/orad_i - tanh(psi - 0.8 psi^2 + 4.85 psi^3) / radius_i);
 //   2. dE/dB_i: the self and surface terms plus sum_j of the GB pair term;
 //      the chain factor g_i = dE/dB_i dB/dpsi_i orad_i;
-//   3. forces: F_i = -sum_j w_ij d_ij + sum_j GdR_ji d_ji, d_ij = x_i - x_j,
-//      where w_ij holds LJ + Coulomb, the GB pair-energy derivative and
-//      GdR_ij = g_i dI_ij/dr / r, and the second sum is the descreening
-//      transpose term that the TPU kernel took from column sums.
+//   3. forces: F_i = -sum_j c_ij d_ij, d_ij = x_i - x_j, with the symmetric
+//      coefficient c_ij = c_ji = w_ij + 2 dE/dr^2_ij + GdR_ij + GdR_ji, where
+//      w holds LJ + Coulomb, GdR_ij = g_i dI_ij/dr / r; so atom j gets
+//      +c_ij d_ij from the same pair.
 // The forms follow the TPU kernel: one rsqrt per distance, 1/(L U) for both
 // reciprocals, per-atom 1/B, r^2 / (4 B_i B_j) from per-atom reciprocals.
 //
-// Not its layout.  The TPU padded the atoms to Ap lanes (pad atoms parked
-// 1000 nm away and masked) and cached (L, U, ln(L/U)) and (exp, f^-3) chunks
-// across passes in VMEM.  Here thread i loops over the A real atoms j and
-// skips j == i (the TPU's off-diagonal mask), and recomputes those
-// quantities in registers in each pass that needs them.  Coordinates, the
-// per-atom tables and the pass results (B, 1/B, g) live in shared memory
-// (12 floats an atom, 30 KB at 640 atoms); the Coulomb scale row of atom i is
-// read from a transposed copy in global memory, so a warp's 32 atoms read 32
-// consecutive words (590 KB at 313 atoms, resident in L2).  Thread i computes
-// the transpose term GdR_ji d_ji itself from j's chain factor: no atomics,
-// a fixed loop order, and the same bits for the same input.
+// Layout.  The atoms go into 32-atom tiles; the work is the nt (nt + 1) / 2
+// tile pairs (I, J), J >= I, strict upper on the diagonal tiles (pair
+// (i, j) with i < j only).  A walker is one cluster of `cluster` blocks of
+// `warps` warps (gb_kernel.launch_shape: 8 warps, and 8 blocks where the
+// block's shared memory fits, else 16 above the portable 8), so a single
+// walker spreads over 8-16 SMs; tile pair t goes to block t mod cluster,
+// and within it to warp (t / cluster) mod warps.  In a tile pair, lane l
+// owns row atom 32 I + l; at step k = 0..31 it meets column atom
+// 32 J + (l + k) mod 32, so the 32 lanes touch 32 distinct columns, and the
+// column sums travel with their columns by one __shfl_sync a step (after 32
+// steps column c's sum is back at lane c).  Per unordered pair the kernel
+// computes once: the geometry, the LJ / Coulomb / RF coefficient, the GB
+// exp and f^-3 terms and dE/dr^2; and once in each direction: I_ij and
+// I_ji with their (L, U, ln) terms (pass 1), the two df^2/dB terms (pass
+// 2), dI_ij/dr and dI_ji/dr (pass 1, from the same (L, U, ln) terms).
+// What pass 3 needs of a pair
+// stays in the block's shared memory between the passes (the pair cache,
+// 12 KB a tile pair: dI_ij/dr / r, dI_ji/dr / r, and w + 2 dE/dr^2), so pass
+// 2 recomputes only r^2 and pass 3 only d.
+//
+// Sums.  Each tile pair writes its row and column partial sums to its
+// block's shared memory.  After cluster.sync(), the atoms of tile T are
+// summed by one warp (block T mod cluster) over the partials of the tile
+// pairs that hold T, read through distributed shared memory in ascending
+// order of the other tile (its row and then its column partial for the
+// diagonal tile pair).  That warp computes the per-atom results (B, 1/B and
+// dB/dpsi after pass 1, g after pass 2, the force after pass 3) and writes
+// B, 1/B and g into every block of the cluster; a cluster.sync() orders
+// them before the next pass.  No atomics: the order of every sum is fixed by
+// the tile indices, not by B, the cluster size or the block that ran a tile
+// pair, so a walker's forces are the same bits at every batch size.
 //
 // Bound on this card: operations.  The function is transcendental-heavy pair
-// math (exp, log, rsqrt and divisions for every ordered pair; 153 operations
-// a pair with OBC2 as the TPU body computes them, counted by
-// gb_kernel.step_ops) on coordinates read once and forces written once, so
-// the least time is operations / the FP32 non-tensor peak (67 TFLOP/s on an
-// H100 SXM).
-//
-// What is slow about this first design: a walker is one block, so at B = 1
-// (a single-walker trajectory, e.g. randx0's sequential launches) one SM of
-// 132 works.  And it repeats work to keep per-atom state in shared memory
-// only: the geometry in each pass, the (exp, f^-3) terms in pass 3, and
-// dI/dr with its (L, U, ln) terms twice there (for the pair seen from i and
-// from j), 250 operations a pair in all (gb_kernel.kernel_ops), 1.63x the
-// function's.  Occupancy at small B, and a triangular (Newton-pair) tiling
-// that also computes the symmetric terms once per unordered pair, are for
-// later work.
+// math (exp, log, rsqrt and divisions; 227 operations an unordered pair with
+// OBC2, counted by gb_kernel.step_ops) on coordinates read once and forces
+// written once, so the least time is operations / the FP32 non-tensor peak
+// (67 TFLOP/s on an H100 SXM).  The kernel executes 11 more an unordered
+// pair (the distances of passes 2 and 3, gb_kernel.kernel_ops).  At a small
+// batch a walker's time is the latency of its passes, spread over 8-16 SMs.
+// At a large batch the throughput is the clusters the card holds at once
+// times that latency: a walker's shared memory (the pair caches and each
+// block's per-atom rows, ~0.8 MB for 313 atoms) lets about 30 clusters
+// reside on an H100.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int kTile = 32;
 constexpr int kMaxAtoms = 640;
+constexpr int kMaxTiles = kMaxAtoms / kTile;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kRows = 13;       // per-atom rows in shared memory
+constexpr int kPart = 3 * 64;   // partial sums of a tile pair: 3 x (row, col)
+constexpr int kCache = 3 * kTile * kTile;  // pair cache of a tile pair
+constexpr unsigned kFull = 0xffffffffu;
 constexpr float kSA = (float)(-6.0 * 28.3919551);  // ACE surface-term d/dB
 
 struct Params {
   const float* tab;  // q | Rmin/2 | sqrt(eps) | radius | offset radius |
                      // scaled radius, A each
-  const float* qqt;  // (A, A) Coulomb scale, transposed: qqt[j A + i] = s_ij
-  int A, use_gb, use_rf, periodic;
+  const float* qq;   // (A, A) Coulomb scale grid (symmetric)
+  int A, nt, ntp, nslot, use_gb, use_rf, periodic;
   float rc, krf, coulomb, pref, bx, by, bz, ibx, iby, ibz;
 };
+
+// A block's shared memory: the per-atom rows (32 nt each), the partial sums
+// of its tile pairs, and with OBC2 their pair caches.
+struct Smem {
+  float *x, *y, *z, *q, *rmh, *seps, *rad, *orad, *sr, *B, *invB, *g, *dBdpsi;
+  float *part, *cache;
+};
+
+__device__ __forceinline__ Smem carve(float* sm, const Params& p) {
+  const int Ap = p.nt * kTile;
+  float* r[kRows];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) r[k] = sm + k * Ap;
+  Smem s{r[0], r[1], r[2], r[3], r[4], r[5], r[6], r[7], r[8], r[9], r[10],
+         r[11], r[12], sm + kRows * Ap, sm + kRows * Ap + p.nslot * kPart};
+  return s;
+}
+
+size_t smem_bytes(int nt, int nslot, int use_gb) {
+  return sizeof(float) * ((size_t)kRows * nt * kTile + (size_t)nslot * kPart +
+                          (use_gb ? (size_t)nslot * kCache : 0));
+}
+
+// Tile pair t <-> (I, J), J >= I, in row-major order of the upper triangle.
+__device__ __forceinline__ int tp_index(int I, int J, int nt) {
+  return I * nt - I * (I - 1) / 2 + (J - I);
+}
+
+__device__ __forceinline__ void tp_tiles(int t, int nt, int& I, int& J) {
+  I = 0;
+  while (t >= nt - I) {
+    t -= nt - I;
+    ++I;
+  }
+  J = I + t;
+}
 
 __device__ __forceinline__ float sgn(float v) {
   return (float)((v > 0.f) - (v < 0.f));
 }
 
-// d = x_i - x_j (minimum-imaged when periodic), r^2, 1/r, r.
-struct Geom {
-  float dx, dy, dz, r2, inv_r, r;
-};
-
-__device__ __forceinline__ Geom geom(const Params& p, const float* sx,
-                                     const float* sy, const float* sz,
-                                     float xi, float yi, float zi, int j) {
-  Geom g;
-  g.dx = xi - sx[j];
-  g.dy = yi - sy[j];
-  g.dz = zi - sz[j];
+// d = x_i - x_j, minimum-imaged when periodic.
+__device__ __forceinline__ void delta(const Params& p, float xi, float yi,
+                                      float zi, const Smem& s, int j,
+                                      float& dx, float& dy, float& dz) {
+  dx = xi - s.x[j];
+  dy = yi - s.y[j];
+  dz = zi - s.z[j];
   if (p.periodic) {
-    g.dx = g.dx - p.bx * rintf(g.dx * p.ibx);
-    g.dy = g.dy - p.by * rintf(g.dy * p.iby);
-    g.dz = g.dz - p.bz * rintf(g.dz * p.ibz);
+    dx = dx - p.bx * rintf(dx * p.ibx);
+    dy = dy - p.by * rintf(dy * p.iby);
+    dz = dz - p.bz * rintf(dz * p.ibz);
   }
-  g.r2 = g.dx * g.dx + g.dy * g.dy + g.dz * g.dz;
-  g.inv_r = rsqrtf(g.r2);
-  g.r = g.r2 * g.inv_r;
-  return g;
 }
 
 // (L, U) terms of the descreening integral of the sphere of scaled radius
@@ -111,11 +165,20 @@ __device__ __forceinline__ bool active(float r, float srj, float oradi) {
   return (r + srj > oradi) && (srj > 1e-8f);
 }
 
+// I_ij, the descreening of atom i by atom j.
+__device__ __forceinline__ float descreen(const LU& t, float r, float inv_r,
+                                          float srj, float oradi) {
+  float I = 0.5f * (t.invL - t.invU +
+                    0.25f * (r - srj * srj * inv_r) *
+                        (t.invU * t.invU - t.invL * t.invL) +
+                    0.5f * t.lnLU * inv_r);
+  if (oradi < srj - r) I += 2.f * (1.f / oradi - t.invL);
+  return I;
+}
+
 // dI_ij / dr for the pair at distance r.
-__device__ __forceinline__ float dI_dr(const Geom& g, float inv_r2, float srj,
-                                       float oradi) {
-  const float r = g.r, inv_r = g.inv_r;
-  const LU t = lu_terms(r, srj, oradi);
+__device__ __forceinline__ float dI_dr(const LU& t, float r, float inv_r,
+                                       float inv_r2, float srj, float oradi) {
   const float dL = (fabsf(r - srj) > oradi) ? sgn(r - srj) : 0.f;
   const float invL2 = t.invL * t.invL, invU2 = t.invU * t.invU;
   float dI = 0.5f * (-invL2 * dL + invU2 +
@@ -129,186 +192,374 @@ __device__ __forceinline__ float dI_dr(const Geom& g, float inv_r2, float srj,
   return dI;
 }
 
-__global__ void __launch_bounds__(kMaxAtoms)
+// LJ + Coulomb (+ reaction field) coefficient w of the pair.
+__device__ __forceinline__ float pair_w(const Params& p, float r, float inv_r,
+                                        float inv_r2, float qi, float qj,
+                                        float rmin, float epsij, float qsc) {
+  float x6 = rmin * rmin * inv_r2;
+  x6 = x6 * x6 * x6;
+  const float qq = p.coulomb * qi * qj;
+  const float lsc = (qsc == 0.f) ? 0.f : ((qsc >= 0.999f) ? 1.f : 0.5f);
+  const float g_lj = 6.f * epsij * (x6 - x6 * x6) * inv_r2;
+  const float g_c_plain = qq * (-0.5f) * inv_r2 * inv_r;
+  if (!p.use_rf) return 2.f * (lsc * g_lj + qsc * g_c_plain);
+  const float within = (r < p.rc) ? 1.f : 0.f;
+  const float full = (qsc >= 0.999f) ? 1.f : 0.f;
+  const float one4 = (qsc > 0.f && qsc < 0.999f) ? 1.f : 0.f;
+  const float l_full = (lsc >= 0.999f) ? 1.f : 0.f;
+  const float l_one4 = (lsc > 0.f && lsc < 0.999f) ? 1.f : 0.f;
+  return 2.f * (g_lj * (l_full * within + l_one4 * lsc) +
+                qq * ((-0.5f * inv_r2 * inv_r + p.krf) * within * full) +
+                g_c_plain * one4 * qsc);
+}
+
+// The tile pair's row atom and where lane meets column c: the row atom i,
+// the column atom j and whether the pair counts.
+struct TilePair {
+  int I, J, i;
+  bool diag, rowok;
+};
+
+__device__ __forceinline__ TilePair tile_pair(const Params& p, int t,
+                                              int lane) {
+  TilePair tp;
+  tp_tiles(t, p.nt, tp.I, tp.J);
+  tp.diag = tp.I == tp.J;
+  tp.i = tp.I * kTile + lane;
+  tp.rowok = tp.i < p.A;
+  return tp;
+}
+
+__device__ __forceinline__ bool counts(const Params& p, const TilePair& tp,
+                                       int c, int lane, int j) {
+  return tp.rowok && j < p.A && (!tp.diag || c > lane);
+}
+
+// Pass 1 of a tile pair (OBC2): the row and column descreening sums, and the
+// pair cache: dI_ij/dr / r, dI_ji/dr / r (0 where inactive) and w.
+__device__ void born_tile(const Params& p, const Smem& s, int t, int slot,
+                          int lane) {
+  const TilePair tp = tile_pair(p, t, lane);
+  const int i = tp.i;
+  const float xi = s.x[i], yi = s.y[i], zi = s.z[i], qi = s.q[i];
+  const float rmhi = s.rmh[i], sepsi = s.seps[i];
+  const float oradi = s.orad[i], sri = s.sr[i];
+  const float* qrow = p.qq + (size_t)(tp.rowok ? i : 0) * p.A + tp.J * kTile;
+  float* cache = s.cache + (size_t)slot * kCache;
+  float row = 0.f, col = 0.f;
+  for (int k = 0; k < kTile; ++k) {
+    const int c = (lane + k) & (kTile - 1), j = tp.J * kTile + c;
+    float Iij = 0.f, Iji = 0.f, Dij = 0.f, Dji = 0.f, w = 0.f;
+    if (counts(p, tp, c, lane, j)) {
+      float dx, dy, dz;
+      delta(p, xi, yi, zi, s, j, dx, dy, dz);
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      const float inv_r = rsqrtf(r2), r = r2 * inv_r, inv_r2 = inv_r * inv_r;
+      w = pair_w(p, r, inv_r, inv_r2, qi, s.q[j], rmhi + s.rmh[j],
+                 sepsi * s.seps[j], __ldg(qrow + c));
+      const float srj = s.sr[j], oradj = s.orad[j];
+      if (active(r, srj, oradi)) {
+        const LU lu = lu_terms(r, srj, oradi);
+        Iij = descreen(lu, r, inv_r, srj, oradi);
+        Dij = dI_dr(lu, r, inv_r, inv_r2, srj, oradi) * inv_r;
+      }
+      if (active(r, sri, oradj)) {
+        const LU lu = lu_terms(r, sri, oradj);
+        Iji = descreen(lu, r, inv_r, sri, oradj);
+        Dji = dI_dr(lu, r, inv_r, inv_r2, sri, oradj) * inv_r;
+      }
+    }
+    row += Iij;
+    col += Iji;
+    cache[k * kTile + lane] = Dij;
+    cache[kTile * kTile + k * kTile + lane] = Dji;
+    cache[2 * kTile * kTile + k * kTile + lane] = w;
+    col = __shfl_sync(kFull, col, (lane + 1) & (kTile - 1));
+  }
+  float* part = s.part + slot * kPart;
+  part[lane] = row;
+  part[kTile + lane] = col;
+}
+
+// Pass 2 of a tile pair: the sums of the GB pair term of dE/dB_i (row) and
+// dE/dB_j (column), without their factor 2; w + 2 dE/dr^2 into the cache.
+__device__ void gb_pair_tile(const Params& p, const Smem& s, int t, int slot,
+                             int lane) {
+  const TilePair tp = tile_pair(p, t, lane);
+  const int i = tp.i;
+  const float xi = s.x[i], yi = s.y[i], zi = s.z[i], qi = s.q[i];
+  const float Bi = s.B[i], invBi = s.invB[i];
+  float* wc = s.cache + (size_t)slot * kCache + 2 * kTile * kTile;
+  float row = 0.f, col = 0.f;
+  for (int k = 0; k < kTile; ++k) {
+    const int c = (lane + k) & (kTile - 1), j = tp.J * kTile + c;
+    float bj = 0.f, bi = 0.f;
+    if (counts(p, tp, c, lane, j)) {
+      float dx, dy, dz;
+      delta(p, xi, yi, zi, s, j, dx, dy, dz);
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      const float Bj = s.B[j];
+      const float tt = r2 * (0.25f * invBi) * s.invB[j];
+      const float expo = expf(-tt);
+      const float f2 = r2 + Bi * Bj * expo;
+      const float rsf = rsqrtf(f2);
+      const float finv3 = rsf * rsf * rsf;
+      const float pq = p.pref * (qi * s.q[j]) * (-0.5f) * finv3;
+      const float base = pq * expo * (1.f + tt);
+      wc[k * kTile + lane] += 2.f * (2.f * pq * (1.f - expo / 4.f));
+      bj = base * Bj;
+      bi = base * Bi;
+    }
+    row += bj;
+    col += bi;
+    col = __shfl_sync(kFull, col, (lane + 1) & (kTile - 1));
+  }
+  float* part = s.part + slot * kPart;
+  part[lane] = row;
+  part[kTile + lane] = col;
+}
+
+// The force pass of a tile pair: -c d into the row sums, +c d into the
+// column sums.  With OBC2, c = (w + 2 dE/dr^2) + g_i dI_ij/dr / r +
+// g_j dI_ji/dr / r from the cache; without, c = w computed here.
+__device__ void force_tile(const Params& p, const Smem& s, int t, int slot,
+                           int lane) {
+  const TilePair tp = tile_pair(p, t, lane);
+  const int i = tp.i;
+  const float xi = s.x[i], yi = s.y[i], zi = s.z[i], qi = s.q[i];
+  const float rmhi = s.rmh[i], sepsi = s.seps[i], gi = s.g[i];
+  const float* qrow = p.qq + (size_t)(tp.rowok ? i : 0) * p.A + tp.J * kTile;
+  const float* cache = s.cache + (size_t)slot * kCache;
+  float rx = 0.f, ry = 0.f, rz = 0.f, cx = 0.f, cy = 0.f, cz = 0.f;
+  for (int k = 0; k < kTile; ++k) {
+    const int c = (lane + k) & (kTile - 1), j = tp.J * kTile + c;
+    float ex = 0.f, ey = 0.f, ez = 0.f;
+    if (counts(p, tp, c, lane, j)) {
+      float dx, dy, dz;
+      delta(p, xi, yi, zi, s, j, dx, dy, dz);
+      float cc;
+      if (p.use_gb) {
+        const int e = k * kTile + lane;
+        cc = cache[2 * kTile * kTile + e] + gi * cache[e] +
+             s.g[j] * cache[kTile * kTile + e];
+      } else {
+        const float r2 = dx * dx + dy * dy + dz * dz;
+        const float inv_r = rsqrtf(r2), r = r2 * inv_r;
+        cc = pair_w(p, r, inv_r, inv_r * inv_r, qi, s.q[j], rmhi + s.rmh[j],
+                    sepsi * s.seps[j], __ldg(qrow + c));
+      }
+      ex = cc * dx;
+      ey = cc * dy;
+      ez = cc * dz;
+    }
+    rx -= ex;
+    ry -= ey;
+    rz -= ez;
+    cx += ex;
+    cy += ey;
+    cz += ez;
+    const int src = (lane + 1) & (kTile - 1);
+    cx = __shfl_sync(kFull, cx, src);
+    cy = __shfl_sync(kFull, cy, src);
+    cz = __shfl_sync(kFull, cz, src);
+  }
+  float* part = s.part + slot * kPart;
+  part[lane] = rx;
+  part[kTile + lane] = cx;
+  part[64 + lane] = ry;
+  part[64 + kTile + lane] = cy;
+  part[128 + lane] = rz;
+  part[128 + kTile + lane] = cz;
+}
+
+// The sums of NQ quantities for atom 32 T + lane over the tile pairs that
+// hold tile T, in ascending order of the other tile U: the column partial
+// of (U, T) for U < T, the row and then the column partial of (T, T), the
+// row partial of (T, U) for U > T.  The partials are read from the block
+// that ran each tile pair, through distributed shared memory; all loads are
+// issued before the additions.
+template <int NQ>
+__device__ __forceinline__ void gather(const Params& p, cg::cluster_group& cl,
+                                       const Smem& s, int T, int lane,
+                                       float out[NQ]) {
+  const int CL = (int)cl.num_blocks();
+  float v[kMaxTiles][NQ], dcol[NQ];
+#pragma unroll
+  for (int U = 0; U < kMaxTiles; ++U) {
+    if (U < p.nt) {
+      const int t = U < T ? tp_index(U, T, p.nt) : tp_index(T, U, p.nt);
+      const float* pr =
+          cl.map_shared_rank(s.part, t % CL) + (t / CL) * kPart + lane;
+      const int side = U < T ? kTile : 0;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        v[U][q] = pr[q * 64 + side];
+        if (U == T) dcol[q] = pr[q * 64 + kTile];
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) out[q] = 0.f;
+#pragma unroll
+  for (int U = 0; U < kMaxTiles; ++U) {
+    if (U < p.nt) {
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        out[q] += v[U][q];
+        if (U == T) out[q] += dcol[q];
+      }
+    }
+  }
+}
+
+// Writes v to element a of the row `dst` in every block of the cluster.
+__device__ __forceinline__ void broadcast(cg::cluster_group& cl, float* dst,
+                                          int a, float v) {
+  const int CL = (int)cl.num_blocks();
+  for (int r = 0; r < CL; ++r) cl.map_shared_rank(dst, r)[a] = v;
+}
+
+__global__ void __launch_bounds__(32 * kMaxWarps)
     gb_force_kernel(const float* __restrict__ x, float* __restrict__ f,
                     Params p) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int CL = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int walker = blockIdx.x / CL;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int W = blockDim.x >> 5;
   extern __shared__ float sm[];
-  const int A = p.A;
-  float* sx = sm;
-  float* sy = sx + A;
-  float* sz = sy + A;
-  float* sq = sz + A;
-  float* srmh = sq + A;
-  float* sseps = srmh + A;
-  float* srad = sseps + A;
-  float* sorad = srad + A;
-  float* ssr = sorad + A;
-  float* sB = ssr + A;
-  float* sinvB = sB + A;
-  float* sgch = sinvB + A;
+  const Smem s = carve(sm, p);
+  const int A = p.A, Ap = p.nt * kTile;
 
-  const float* xw = x + (size_t)blockIdx.x * 3 * A;
-  for (int k = threadIdx.x; k < A; k += blockDim.x) {
-    sx[k] = xw[3 * k + 0];
-    sy[k] = xw[3 * k + 1];
-    sz[k] = xw[3 * k + 2];
-    sq[k] = p.tab[k];
-    srmh[k] = p.tab[A + k];
-    sseps[k] = p.tab[2 * A + k];
-    srad[k] = p.tab[3 * A + k];
-    sorad[k] = p.tab[4 * A + k];
-    ssr[k] = p.tab[5 * A + k];
+  // every block stages the whole walker; pad atoms get harmless values
+  const float* xw = x + (size_t)walker * 3 * A;
+  for (int k = threadIdx.x; k < Ap; k += blockDim.x) {
+    const bool own = k < A;
+    s.x[k] = own ? xw[3 * k + 0] : 0.f;
+    s.y[k] = own ? xw[3 * k + 1] : 0.f;
+    s.z[k] = own ? xw[3 * k + 2] : 0.f;
+    s.q[k] = own ? p.tab[k] : 0.f;
+    s.rmh[k] = own ? p.tab[A + k] : 0.f;
+    s.seps[k] = own ? p.tab[2 * A + k] : 0.f;
+    s.rad[k] = own ? p.tab[3 * A + k] : 1.f;
+    s.orad[k] = own ? p.tab[4 * A + k] : 1.f;
+    s.sr[k] = own ? p.tab[5 * A + k] : 0.f;
+    s.B[k] = 1.f;
+    s.invB[k] = 1.f;
+    s.g[k] = 0.f;
+    s.dBdpsi[k] = 0.f;
   }
-  __syncthreads();
-
-  const int i = threadIdx.x;  // blockDim.x >= A: one thread per atom
-  const bool own = i < A;
-  float xi = 0.f, yi = 0.f, zi = 0.f, qi = 0.f, oradi = 1.f, sri = 0.f;
-  float Bi = 1.f, invBi = 1.f, gi = 0.f;
-  if (own) {
-    xi = sx[i];
-    yi = sy[i];
-    zi = sz[i];
-    qi = sq[i];
-    oradi = sorad[i];
-    sri = ssr[i];
-  }
+  // the block's tile pairs are t = rank + CL * slot
+  const int nslot = (p.ntp - rank + CL - 1) / CL;
+  cl.sync();  // every block's rows are staged before any remote write
 
   if (p.use_gb) {
     // ---- pass 1: Born radius -------------------------------------------
-    float dBdpsi = 0.f;
-    if (own) {
-      float Ii = 0.f;
-      for (int j = 0; j < A; ++j) {
-        if (j == i) continue;
-        const Geom g = geom(p, sx, sy, sz, xi, yi, zi, j);
-        const float srj = ssr[j];
-        const LU t = lu_terms(g.r, srj, oradi);
-        float I = 0.5f * (t.invL - t.invU +
-                          0.25f * (g.r - srj * srj * g.inv_r) *
-                              (t.invU * t.invU - t.invL * t.invL) +
-                          0.5f * t.lnLU * g.inv_r);
-        if (oradi < srj - g.r) I += 2.f * (1.f / oradi - t.invL);
-        if (active(g.r, srj, oradi)) Ii += I;
+    for (int sl = warp; sl < nslot; sl += W)
+      born_tile(p, s, rank + CL * sl, sl, lane);
+    cl.sync();
+    for (int T = rank + CL * warp; T < p.nt; T += CL * W) {
+      float Ii[1];
+      gather<1>(p, cl, s, T, lane, Ii);
+      const int a = T * kTile + lane;
+      if (a < A) {
+        const float oradi = s.orad[a], radi = s.rad[a];
+        const float psi = Ii[0] * oradi;
+        const float garg =
+            psi - 0.8f * (psi * psi) + 4.85f * (psi * psi * psi);
+        const float th = tanhf(garg);
+        float Bi = 1.f / (1.f / oradi - th / radi);
+        Bi = fmaxf(Bi, oradi);
+        s.dBdpsi[a] = Bi * Bi * (1.f - th * th) *
+                      (1.f - 1.6f * psi + 14.55f * (psi * psi)) / radi;
+        broadcast(cl, s.B, a, Bi);
+        broadcast(cl, s.invB, a, 1.f / Bi);
       }
-      const float radi = srad[i];
-      const float psi = Ii * oradi;
-      const float garg = psi - 0.8f * (psi * psi) + 4.85f * (psi * psi * psi);
-      const float th = tanhf(garg);
-      Bi = 1.f / (1.f / oradi - th / radi);
-      Bi = fmaxf(Bi, oradi);
-      invBi = 1.f / Bi;
-      dBdpsi = Bi * Bi * (1.f - th * th) *
-               (1.f - 1.6f * psi + 14.55f * (psi * psi)) / radi;
-      sB[i] = Bi;
-      sinvB[i] = invBi;
     }
-    __syncthreads();
+    cl.sync();
 
     // ---- pass 2: dE/dB and the chain factor ----------------------------
-    if (own) {
-      const float radi = srad[i];
-      const float ra = radi + 0.14f;
-      const float r3 = radi * radi * radi;
-      const float iB2 = invBi * invBi;
-      float dEdB = p.pref * (-(qi * qi) * invBi * invBi) +
-                   kSA * (ra * ra) * (r3 * r3) * (iB2 * iB2 * iB2 * invBi);
-      float acc = 0.f;
-      for (int j = 0; j < A; ++j) {
-        if (j == i) continue;
-        const Geom g = geom(p, sx, sy, sz, xi, yi, zi, j);
-        const float Bj = sB[j];
-        const float t = g.r2 * (0.25f * invBi) * sinvB[j];
-        const float expo = expf(-t);
-        const float f2 = g.r2 + Bi * Bj * expo;
-        const float rsf = rsqrtf(f2);
-        const float finv3 = rsf * rsf * rsf;
-        const float df2dBi = Bj * expo * (1.f + t);
-        acc += p.pref * (qi * sq[j]) * (-0.5f) * finv3 * df2dBi;
+    for (int sl = warp; sl < nslot; sl += W)
+      gb_pair_tile(p, s, rank + CL * sl, sl, lane);
+    cl.sync();
+    for (int T = rank + CL * warp; T < p.nt; T += CL * W) {
+      float acc[1];
+      gather<1>(p, cl, s, T, lane, acc);
+      const int a = T * kTile + lane;
+      if (a < A) {
+        const float qi = s.q[a], invBi = s.invB[a], radi = s.rad[a];
+        const float ra = radi + 0.14f;
+        const float r3 = radi * radi * radi;
+        const float iB2 = invBi * invBi;
+        float dEdB = p.pref * (-(qi * qi) * invBi * invBi) +
+                     kSA * (ra * ra) * (r3 * r3) * (iB2 * iB2 * iB2 * invBi);
+        dEdB += 2.f * acc[0];
+        broadcast(cl, s.g, a, dEdB * s.dBdpsi[a] * s.orad[a]);
       }
-      dEdB += 2.f * acc;
-      gi = dEdB * dBdpsi * oradi;
-      sgch[i] = gi;
     }
-    __syncthreads();
+    cl.sync();
   }
 
   // ---- pass 3: forces ----------------------------------------------------
-  if (!own) return;  // no block-wide barrier follows
-  const float rmhi = srmh[i], sepsi = sseps[i];
-  float fxr = 0.f, fyr = 0.f, fzr = 0.f;  // -sum_j w_ij d_ij
-  float fxt = 0.f, fyt = 0.f, fzt = 0.f;  // sum_j GdR_ji d_ji
-  for (int j = 0; j < A; ++j) {
-    if (j == i) continue;
-    const Geom g = geom(p, sx, sy, sz, xi, yi, zi, j);
-    const float inv_r2 = g.inv_r * g.inv_r;
-    const float rmin = rmhi + srmh[j];
-    const float epsij = sepsi * sseps[j];
-    float x6 = rmin * rmin * inv_r2;
-    x6 = x6 * x6 * x6;
-    const float qq = p.coulomb * qi * sq[j];
-    const float qsc = __ldg(p.qqt + (size_t)j * A + i);
-    const float lsc = (qsc == 0.f) ? 0.f : ((qsc >= 0.999f) ? 1.f : 0.5f);
-    const float g_lj = 6.f * epsij * (x6 - x6 * x6) * inv_r2;
-    const float g_c_plain = qq * (-0.5f) * inv_r2 * g.inv_r;
-    float w;
-    if (!p.use_rf) {
-      w = 2.f * (lsc * g_lj + qsc * g_c_plain);
-    } else {
-      const float within = (g.r < p.rc) ? 1.f : 0.f;
-      const float full = (qsc >= 0.999f) ? 1.f : 0.f;
-      const float one4 = (qsc > 0.f && qsc < 0.999f) ? 1.f : 0.f;
-      const float l_full = (lsc >= 0.999f) ? 1.f : 0.f;
-      const float l_one4 = (lsc > 0.f && lsc < 0.999f) ? 1.f : 0.f;
-      w = 2.f * (g_lj * (l_full * within + l_one4 * lsc) +
-                 qq * ((-0.5f * inv_r2 * g.inv_r + p.krf) * within * full) +
-                 g_c_plain * one4 * qsc);
+  for (int sl = warp; sl < nslot; sl += W)
+    force_tile(p, s, rank + CL * sl, sl, lane);
+  cl.sync();
+  float* fw = f + (size_t)walker * 3 * A;
+  for (int T = rank + CL * warp; T < p.nt; T += CL * W) {
+    float F[3];
+    gather<3>(p, cl, s, T, lane, F);
+    const int a = T * kTile + lane;
+    if (a < A) {
+      fw[3 * a + 0] = F[0];
+      fw[3 * a + 1] = F[1];
+      fw[3 * a + 2] = F[2];
     }
-    if (p.use_gb) {
-      const float Bj = sB[j];
-      const float t = g.r2 * (0.25f * invBi) * sinvB[j];
-      const float expo = expf(-t);
-      const float f2 = g.r2 + Bi * Bj * expo;
-      const float rsf = rsqrtf(f2);
-      const float finv3 = rsf * rsf * rsf;
-      const float dEdr2 =
-          2.f * p.pref * (qi * sq[j]) * (-0.5f) * finv3 * (1.f - expo / 4.f);
-      w += 2.f * dEdr2;
-      const float srj = ssr[j], oradj = sorad[j];
-      if (active(g.r, srj, oradi))
-        w += gi * dI_dr(g, inv_r2, srj, oradi) * g.inv_r;
-      if (active(g.r, sri, oradj)) {
-        // the pair seen from j: d_ji = -d_ij
-        const float gdr_ji = sgch[j] * dI_dr(g, inv_r2, sri, oradj) * g.inv_r;
-        fxt -= gdr_ji * g.dx;
-        fyt -= gdr_ji * g.dy;
-        fzt -= gdr_ji * g.dz;
-      }
-    }
-    fxr -= w * g.dx;
-    fyr -= w * g.dy;
-    fzr -= w * g.dz;
   }
-  float* fw = f + (size_t)blockIdx.x * 3 * A;
-  fw[3 * i + 0] = fxr + fxt;
-  fw[3 * i + 1] = fyr + fyt;
-  fw[3 * i + 2] = fzr + fzt;
+  cl.sync();  // no block leaves while another still reads its partials
+}
+
+// Lets the kernel take `smem` bytes of dynamic shared memory and, above 8
+// blocks, a non-portable cluster size (each set once, when first needed).
+cudaError_t allow(size_t smem, int cluster) {
+  static size_t smem_set = 48 * 1024;
+  static bool nonportable = false;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gb_force_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  if (cluster > 8 && !nonportable) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gb_force_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    nonportable = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// x, f: (B, 3A) float32 row-major on the device; tab (6, A) and qqt (A, A)
-// float32 on the device.  Returns a cudaError_t.
+// x, f: (B, 3A) float32 row-major on the device; tab (6, A) and qq (A, A)
+// float32 on the device.  One cluster of `cluster` blocks of 32 * `warps`
+// threads per walker.  Returns a cudaError_t.
 extern "C" int gb_force(const void* x, void* f, int B, int A, const void* tab,
-                        const void* qqt, int use_gb, int use_rf, float rc,
+                        const void* qq, int use_gb, int use_rf, float rc,
                         float krf, float coulomb, float pref, int periodic,
                         float bx, float by, float bz, float ibx, float iby,
-                        float ibz, void* stream) {
-  if (A < 2 || A > kMaxAtoms || B < 1) return cudaErrorInvalidValue;
+                        float ibz, int cluster, int warps, void* stream) {
+  if (A < 2 || A > kMaxAtoms || B < 1 || cluster < 1 ||
+      cluster > kMaxCluster || warps < 1 || warps > kMaxWarps)
+    return cudaErrorInvalidValue;
   Params p;
   p.tab = static_cast<const float*>(tab);
-  p.qqt = static_cast<const float*>(qqt);
+  p.qq = static_cast<const float*>(qq);
   p.A = A;
+  p.nt = (A + kTile - 1) / kTile;
+  p.ntp = p.nt * (p.nt + 1) / 2;
+  p.nslot = (p.ntp + cluster - 1) / cluster;
   p.use_gb = use_gb;
   p.use_rf = use_rf;
   p.periodic = periodic;
@@ -322,9 +573,53 @@ extern "C" int gb_force(const void* x, void* f, int B, int A, const void* tab,
   p.ibx = ibx;
   p.iby = iby;
   p.ibz = ibz;
-  const int threads = ((A + 31) / 32) * 32;
-  const size_t smem = 12 * sizeof(float) * (size_t)A;
-  gb_force_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(f), p);
+  const size_t smem = smem_bytes(p.nt, p.nslot, use_gb);
+  cudaError_t err = allow(smem, cluster);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(32 * warps, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gb_force_kernel,
+                           static_cast<const float*>(x),
+                           static_cast<float*>(f), p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Clusters of `cluster` blocks the card can hold at once for this launch
+// shape (cudaOccupancyMaxActiveClusters), or -1 on an error.
+extern "C" int gb_force_max_clusters(int A, int use_gb, int cluster,
+                                     int warps) {
+  if (A < 2 || A > kMaxAtoms || cluster < 1 || cluster > kMaxCluster ||
+      warps < 1 || warps > kMaxWarps)
+    return -1;
+  const int nt = (A + kTile - 1) / kTile;
+  const int nslot = (nt * (nt + 1) / 2 + cluster - 1) / cluster;
+  const size_t smem = smem_bytes(nt, nslot, use_gb);
+  if (allow(smem, cluster) != cudaSuccess) return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster, 1, 1);
+  cfg.blockDim = dim3(32 * warps, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, gb_force_kernel, &cfg) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }

@@ -16,6 +16,12 @@ the bound.
   Born-radius descreening sums, dE/dB sums, then the force accumulation
   with the descreening transpose term from column sums.  The CPU tests
   and ``chip_smoke.py`` hold the kernel against it.
+- ``gb_force_tiled``: the kernel's order in tensor ops (32-atom tiles,
+  each unordered pair once in a tile pair J >= I, strict upper on the
+  diagonal, the lanes' rotating column sums, per-tile-pair partial sums
+  added per atom in ascending tile order).  Its rounding is the CPU's;
+  the CPU tests hold it to ``gb_force_plain`` and to the JAX package's
+  upper-triangle kernel.
 - ``gb_force``: the wrapper.  A CPU tensor takes the plain version; a
   CUDA tensor launches the kernel or raises.  ``gb_force.launches``
   counts the launches.
@@ -34,7 +40,10 @@ from . import langevin_kernel as LK
 from .forces import bonded_force_flat
 from .system import COULOMB, MDSystem
 
-MAX_ATOMS = 640          # one thread per atom, one block per walker
+MAX_ATOMS = 640          # 20 tiles of 32 atoms
+TILE = 32
+WARPS = 8                # warps a block
+SMEM_LIMIT = 232448      # dynamic shared memory of a block on an H100
 OFFSET = 0.009           # OBC offset of the Born radii [nm]
 EPS_SOLVENT = 78.5
 PREF = -0.5 * COULOMB * (1.0 - 1.0 / EPS_SOLVENT)
@@ -46,9 +55,9 @@ class GBPlan:
 
     ``tab`` (6, A) float32: q | Rmin/2 | sqrt(eps) | Born radius | offset
     radius | scaled radius (zeros and 0.15 nm radii without OBC2, as the
-    reference plan); ``qq_scale`` (A, A) float32 with a zero diagonal (its
-    transpose goes to the card, for the kernel's coalesced column reads).
-    The values are computed in float32 numpy as the reference plan does."""
+    reference plan); ``qq_scale`` (A, A) float32, symmetric, with a zero
+    diagonal.  The values are computed in float32 numpy as the reference
+    plan does."""
 
     def __init__(self, sys: MDSystem):
         A = sys.natoms
@@ -95,66 +104,114 @@ class GBPlan:
             names = ("q", "rmh", "seps", "radii", "orad", "sr")
             d = {n: tab[k] for k, n in enumerate(names)}
             d.update(tab=tab,
-                     qq=torch.as_tensor(self.qq_scale, device=device),
-                     qq_t=torch.as_tensor(
-                         np.ascontiguousarray(self.qq_scale.T),
-                         device=device))
+                     qq=torch.as_tensor(self.qq_scale, device=device))
             self._dev[key] = d
         return self._dev[key]
 
 
-# Per ordered pair (i, j), the float operations the function needs, each
+# Per unordered pair {i, j}, the float operations the function needs, each
 # transcendental (exp, log, tanh, rsqrt), division and comparison counted as
-# one: the geometry (3 differences, r^2, rsqrt, r) 10, and 12 more under
-# minimum image; the LJ + Coulomb coefficient 23 (33 with the reaction
-# field) and its force accumulation 6.  With OBC2 also the descreening
-# integral I_ij with its (L, U, ln) terms and masks 30; the GB pair term of
-# dE/dB_i (exp, f, f^-3, df/dB_i) 20; the GB pair-energy derivative from
-# those exp and f^-3, 11; dI_ij/dr from the (L, U, ln) terms of I_ij, 47
-# (dL 6, the polynomial 31, the engulfed correction 2, mask and product 8);
-# and the accumulation of the descreening transpose term, 6.  The TPU body
-# computes each of these once per ordered pair (it keeps the (L, U, ln) and
-# (exp, f^-3) chunks between passes).  The CUDA kernel repeats some of it
-# (``kernel_ops``): the geometry in each of its three passes, the (exp,
-# f^-3) terms (10) in pass 3, and there dI/dr twice with its (L, U, ln)
-# terms (57 each), once for the pair seen from i and once from j.
+# one.  Once a pair: the geometry (3 differences, r^2, rsqrt, r) 10, and 12
+# more under minimum image; the LJ + Coulomb coefficient 23 (33 with the
+# reaction field); the force accumulation 9 (c d, -c d into atom i, +c d into
+# atom j).  With OBC2 also, once a pair: the GB pair term's exp, f, f^-3 and
+# their common product 16; the GB pair-energy derivative dE/dr^2 from those
+# 11.  And once in each direction (i by j and j by i): the descreening
+# integral with its (L, U, ln) terms and masks 30; the GB pair term's df/dB
+# factor and sum 2; dI/dr from the (L, U, ln) terms 47 (dL 6, the
+# polynomial 31, the engulfed correction 2, mask, g dI/dr / r and its sum
+# into c 8).  That is 227 an unordered pair with OBC2 (113.5 an ordered
+# pair), 52 in vacuum with the reaction field.  The CUDA kernel executes
+# these, and with OBC2 recomputes the pair's r^2 in pass 2 (8, +12 under
+# minimum image) and its d in pass 3 (3, +12): ``kernel_ops``.
+# PR 7-10 counted the function per ordered pair, each symmetric term twice:
+# 153 a pair with OBC2 (``step_ops(plan, ordered=True)``).
 _GEOM, _GEOM_PBC = 10, 12
-_NB, _NB_RF, _ACC = 23, 33, 6
-_BORN, _GB_PAIR, _GB_DR, _DI, _LU, _EXPF = 30, 20, 11, 47, 10, 10
+_NB, _NB_RF, _ACC2 = 23, 33, 9
+_BORN, _GB_SYM, _GB_DIR, _GB_DR, _DI = 30, 16, 2, 11, 47
+_R2_AGAIN, _D_AGAIN = 8, 3
 _PER_ATOM = 40           # Born radius, dE/dB self terms, chain factor
+# the ordered-pair count of PR 7-10: geometry, LJ/Coulomb, accumulation,
+# Born term, GB pair term, dE/dr^2, dI/dr, transpose accumulation
+_ORD_ACC, _ORD_GB_PAIR = 6, 20
 
 
-def _ops(plan: GBPlan, geoms: int, dis: int, lus: int, expfs: int) -> float:
-    pairs = plan.A * (plan.A - 1)
-    geom = _GEOM + (_GEOM_PBC if plan.box is not None else 0)
-    nb = (_NB_RF if plan.use_rf else _NB) + _ACC
-    if not plan.use_gb:
-        return float(pairs * (geom + nb))
-    gb = (_BORN + _GB_PAIR + _GB_DR + dis * _DI + lus * _LU
-          + expfs * _EXPF + _ACC)
-    return float(pairs * (geoms * geom + nb + gb) + plan.A * _PER_ATOM)
+def _pairs(plan: GBPlan) -> int:
+    return plan.A * (plan.A - 1) // 2
 
 
-def step_ops(plan: GBPlan) -> float:
+def step_ops(plan: GBPlan, ordered: bool = False) -> float:
     """Float operations per walker per force evaluation that the function
-    needs (see the per-pair constants above): 153 an ordered pair with
-    OBC2, 49 in vacuum with the reaction field.  ``bound_ms`` uses it."""
-    return _ops(plan, geoms=1, dis=1, lus=0, expfs=0)
+    needs (see the per-pair constants above): 227 an unordered pair with
+    OBC2, 52 in vacuum with the reaction field.  ``bound_ms`` uses it.
+    ``ordered=True`` gives the count of PR 7-10 (153 an ordered pair with
+    OBC2), kept so that their shares of bound stay comparable."""
+    geom = _GEOM + (_GEOM_PBC if plan.box is not None else 0)
+    nb = _NB_RF if plan.use_rf else _NB
+    if ordered:
+        pairs = plan.A * (plan.A - 1)
+        if not plan.use_gb:
+            return float(pairs * (geom + nb + _ORD_ACC))
+        return float(pairs * (geom + nb + _ORD_ACC + _BORN + _ORD_GB_PAIR
+                              + _GB_DR + _DI + _ORD_ACC)
+                     + plan.A * _PER_ATOM)
+    per_pair = geom + nb + _ACC2
+    if not plan.use_gb:
+        return float(_pairs(plan) * per_pair)
+    per_pair += _GB_SYM + _GB_DR + 2 * (_BORN + _GB_DIR + _DI)
+    return float(_pairs(plan) * per_pair + plan.A * _PER_ATOM)
 
 
 def kernel_ops(plan: GBPlan) -> float:
     """Float operations per walker per force evaluation as the CUDA kernel
-    executes them, its repeated work included: 250 an ordered pair with
-    OBC2, as ``step_ops`` in vacuum."""
-    return _ops(plan, geoms=3, dis=2, lus=2, expfs=1)
+    executes them: ``step_ops`` plus, with OBC2, the pair's r^2 again in
+    pass 2 and its d again in pass 3 (11 an unordered pair, 35 under
+    minimum image); as ``step_ops`` in vacuum (one pass)."""
+    again = 0
+    if plan.use_gb:
+        again = _R2_AGAIN + _D_AGAIN + (2 * _GEOM_PBC if plan.box is not None
+                                        else 0)
+    return step_ops(plan) + float(_pairs(plan) * again)
 
 
-def bound_ms(plan: GBPlan, nwalkers: int):
+def tiles(plan: GBPlan) -> int:
+    """32-atom tiles of the kernel's layout."""
+    return -(-plan.A // TILE)
+
+
+def smem_bytes(plan: GBPlan, cluster: int) -> int:
+    """Shared memory of one block of the kernel (``csrc/gb_force.cu``):
+    13 per-atom rows, and for each of its tile pairs 3 x 64 partial sums
+    and, with OBC2, the 3 x 1024-float pair cache."""
+    nt = tiles(plan)
+    nslot = -(-(nt * (nt + 1) // 2) // cluster)
+    return 4 * (13 * nt * TILE + nslot * 192
+                + (nslot * 3 * TILE * TILE if plan.use_gb else 0))
+
+
+def launch_shape(plan: GBPlan):
+    """(cluster, warps): 8 warps a block, and the smallest cluster of 8 or
+    16 blocks whose blocks fit in shared memory (measured on an H100:
+    trp-cage runs fastest at 8 x 8 from B=1 to B=16384, villin needs 16)."""
+    for cluster in (8, 16):
+        if smem_bytes(plan, cluster) <= SMEM_LIMIT:
+            return cluster, WARPS
+    raise NotImplementedError(f"no gb_force launch shape for {plan.A} "
+                              f"atoms")
+
+
+def blocks(plan: GBPlan, nwalkers: int):
+    """(blocks, clusters) the kernel launches for ``nwalkers`` walkers: one
+    cluster a walker, of ``launch_shape(plan)[0]`` blocks."""
+    return int(nwalkers) * launch_shape(plan)[0], int(nwalkers)
+
+
+def bound_ms(plan: GBPlan, nwalkers: int, ordered: bool = False):
     """Least time on an H100 for one force evaluation of ``nwalkers``
-    walkers, and what bounds it: operations over the FP32 peak, or the
-    coordinates read and the forces written once, with the tables and
-    the scale grid read once, over the memory rate."""
-    ops = step_ops(plan) * nwalkers
+    walkers, and what bounds it: operations (``step_ops``) over the FP32
+    peak, or the coordinates read and the forces written once, with the
+    tables and the scale grid read once, over the memory rate."""
+    ops = step_ops(plan, ordered) * nwalkers
     nbytes = 2 * 4 * nwalkers * plan.dim + plan.tab.nbytes \
         + plan.qq_scale.nbytes
     t_ops = ops / LK.H100_FP32_PEAK
@@ -179,6 +236,49 @@ def _dI_dr(r, inv_r, inv_r2, srj, orad_i, invL, invU, lnLU):
                   * (-2.0 * invU * invU2 + 2.0 * invL * invL2 * dL))
         - 0.5 * lnLU * inv_r2 + 0.5 * (dL * invL - invU) * inv_r)
     return dI + torch.where(orad_i < srj - r, 2.0 * invL2 * dL, 0.0)
+
+
+def _pair_w(plan: GBPlan, r, inv_r, inv_r2, qq, rmin, epsij, qsc):
+    """LJ + Coulomb (+ reaction field) coefficient w of pairs, with the
+    LJ scale derived from the Coulomb scale ``qsc``."""
+    x6 = (rmin * rmin * inv_r2) ** 3
+    lsc = torch.where(qsc == 0.0, 0.0, torch.where(qsc >= 0.999, 1.0, 0.5))
+    g_lj = 6.0 * epsij * (x6 - x6 * x6) * inv_r2
+    g_c_plain = qq * (-0.5) * inv_r2 * inv_r
+    if not plan.use_rf:
+        return 2.0 * (lsc * g_lj + qsc * g_c_plain)
+    dt = r.dtype
+    within = (r < plan.cutoff).to(dt)
+    full = (qsc >= 0.999).to(dt)
+    one4 = ((qsc > 0) & (qsc < 0.999)).to(dt)
+    l_full = (lsc >= 0.999).to(dt)
+    l_one4 = ((lsc > 0) & (lsc < 0.999)).to(dt)
+    return 2.0 * (g_lj * (l_full * within + l_one4 * lsc)
+                  + qq * ((-0.5 * inv_r2 * inv_r + plan.krf) * within * full)
+                  + g_c_plain * one4 * qsc)
+
+
+def _lu_descreen(r, inv_r, srj, orad_i):
+    """The descreening integral I_ij of atom i (offset radius ``orad_i``)
+    by atom j (scaled radius ``srj``), before the activity mask, with its
+    (1/L, 1/U, ln(L/U)) terms."""
+    L = torch.maximum(torch.abs(r - srj), orad_i)
+    U = r + srj
+    rLU = 1.0 / (L * U)
+    invL, invU = U * rLU, L * rLU
+    lnLU = torch.log(L * invU)
+    I = 0.5 * (invL - invU + 0.25 * (r - srj ** 2 * inv_r)
+               * (invU ** 2 - invL ** 2) + 0.5 * lnLU * inv_r)
+    I = I + torch.where(orad_i < srj - r, 2.0 * (1.0 / orad_i - invL), 0.0)
+    return I, invL, invU, lnLU
+
+
+def _descreen(r, inv_r, inv_r2, srj, orad_i):
+    """I_ij and dI_ij/dr / r, 0 where the pair is inactive."""
+    I, invL, invU, lnLU = _lu_descreen(r, inv_r, srj, orad_i)
+    D = _dI_dr(r, inv_r, inv_r2, srj, orad_i, invL, invU, lnLU) * inv_r
+    act = (r + srj > orad_i) & (srj > 1e-8)
+    return torch.where(act, I, 0.0), torch.where(act, D, 0.0)
 
 
 def gb_force_plain(plan: GBPlan, x):
@@ -206,15 +306,7 @@ def gb_force_plain(plan: GBPlan, x):
         # ---- pass 1: Born-radius descreening sums ----------------------
         orad_c, radii_c, q_c = col["orad"], col["radii"], col["q"]
         srj = row["sr"]
-        L = torch.maximum(torch.abs(r - srj), orad_c)
-        U = r + srj
-        rLU = 1.0 / (L * U)
-        invL, invU = U * rLU, L * rLU
-        lnLU = torch.log(L * invU)
-        I = 0.5 * (invL - invU + 0.25 * (r - srj ** 2 * inv_r)
-                   * (invU ** 2 - invL ** 2) + 0.5 * lnLU * inv_r)
-        I = I + torch.where(orad_c < srj - r, 2.0 * (1.0 / orad_c - invL),
-                            0.0)
+        I, invL, invU, lnLU = _lu_descreen(r, inv_r, srj, orad_c)
         active = ((r + srj > orad_c).to(x.dtype) * offd
                   * (srj > 1e-8).to(x.dtype))
         Ii = torch.sum(I * active, dim=2, keepdim=True)        # (B, A, 1)
@@ -245,27 +337,9 @@ def gb_force_plain(plan: GBPlan, x):
 
     # ---- pass 3: force accumulation ------------------------------------
     inv_r2 = inv_r * inv_r
-    rmin = col["rmh"] + row["rmh"]
-    epsij = col["seps"] * row["seps"]
-    x6 = (rmin * rmin * inv_r2) ** 3
-    qq = COULOMB * col["q"] * row["q"]
-    qsc = tb["qq"]
-    lsc = torch.where(qsc == 0.0, 0.0, torch.where(qsc >= 0.999, 1.0, 0.5))
-    g_lj = 6.0 * epsij * (x6 - x6 * x6) * inv_r2
-    g_c_plain = qq * (-0.5) * inv_r2 * inv_r
-    if not plan.use_rf:
-        w = 2.0 * (lsc * g_lj + qsc * g_c_plain)
-    else:
-        within = (r < plan.cutoff).to(x.dtype)
-        full = (qsc >= 0.999).to(x.dtype)
-        one4 = ((qsc > 0) & (qsc < 0.999)).to(x.dtype)
-        l_full = (lsc >= 0.999).to(x.dtype)
-        l_one4 = ((lsc > 0) & (lsc < 0.999)).to(x.dtype)
-        w = 2.0 * (g_lj * (l_full * within + l_one4 * lsc)
-                   + qq * ((-0.5 * inv_r2 * inv_r + plan.krf) * within
-                           * full)
-                   + g_c_plain * one4 * qsc)
-    w = w * offd
+    w = _pair_w(plan, r, inv_r, inv_r2, COULOMB * col["q"] * row["q"],
+                col["rmh"] + row["rmh"], col["seps"] * row["seps"],
+                tb["qq"]) * offd
 
     ft = None
     if plan.use_gb:
@@ -284,20 +358,188 @@ def gb_force_plain(plan: GBPlan, x):
 
 
 # ==========================================================================
+# The kernel's order in tensor ops (test-facing)
+# ==========================================================================
+
+def tile_pairs(plan: GBPlan):
+    """The kernel's tile pairs (I, J), J >= I, in row-major order of the
+    upper triangle (tile pair t runs on block t mod cluster)."""
+    nt = tiles(plan)
+    return [(i, j) for i in range(nt) for j in range(i, nt)]
+
+
+def gb_force_tiled(plan: GBPlan, x):
+    """Nonbonded (+ OBC2) forces, (B, 3A) -> (B, 3A), in the CUDA kernel's
+    order: in tile pair (I, J) lane l owns row atom 32 I + l and at step k
+    meets column atom 32 J + (l + k) mod 32 (pairs with i < j only on the
+    diagonal), its row sum adding over k and its column sums travelling
+    with their columns one lane down a step; each atom then adds the
+    partial sums of the tile pairs that hold its tile in ascending order
+    of the other tile (row, then column partial on the diagonal).  The
+    pair arithmetic and the pass structure are the kernel's (the pair
+    cache between the passes included)."""
+    tb = plan.on(x.device)
+    Bn, A, T = x.shape[0], plan.A, TILE
+    nt = tiles(plan)
+    Ap = nt * T
+    dev, dt = x.device, x.dtype
+    pairs_ij = tile_pairs(plan)
+    index = {ij: t for t, ij in enumerate(pairs_ij)}
+    tI = torch.tensor([i for i, _ in pairs_ij], device=dev)
+    tJ = torch.tensor([j for _, j in pairs_ij], device=dev)
+    lane = torch.arange(T, device=dev)
+
+    def padded(v, fill):
+        out = torch.full((Ap,), fill, dtype=dt, device=dev)
+        out[:A] = v
+        return out
+
+    q, rmh, seps = (padded(tb[n], 0.0) for n in ("q", "rmh", "seps"))
+    rad, orad = padded(tb["radii"], 1.0), padded(tb["orad"], 1.0)
+    sr = padded(tb["sr"], 0.0)
+    qq = torch.zeros(Ap, Ap, dtype=dt, device=dev)
+    qq[:A, :A] = tb["qq"]
+    X = torch.zeros(Bn, Ap, 3, dtype=dt, device=dev)
+    X[:, :A] = x.reshape(Bn, A, 3)
+    rows = tI[:, None] * T + lane[None]                   # (ntp, 32)
+    diag = (tI == tJ)[:, None]
+    box = (torch.tensor(plan.box, dtype=dt, device=dev)
+           if plan.box is not None else None)
+
+    def step(k):
+        """Column atoms of step k, whether each pair counts, and d."""
+        c = (lane + k) % T
+        j = tJ[:, None] * T + c[None]
+        ok = (rows < A) & (j < A) & (~diag | (c[None] > lane[None]))
+        d = X[:, rows] - X[:, j]                           # (B, ntp, 32, 3)
+        if box is not None:
+            d = d - box * torch.round(d * (1.0 / box))
+        return j, ok.expand(Bn, -1, -1), d
+
+    def r2_of(d, ok):
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        return torch.where(ok, r2, 1.0)
+
+    def sweep(pair_fn, nq):
+        """Row and column partial sums (nq, B, ntp, 32) of pair_fn(k),
+        which returns nq (row, column) contributions of step k."""
+        row = torch.zeros(nq, Bn, len(pairs_ij), T, dtype=dt, device=dev)
+        col = torch.zeros_like(row)
+        for k in range(T):
+            rk, ck = pair_fn(k)
+            row = row + rk
+            col = torch.roll(col + ck, -1, dims=-1)
+        return row, col
+
+    def gather(row, col):
+        """(nq, B, Ap) per-atom sums in ascending tile order."""
+        out = torch.zeros(row.shape[0], Bn, Ap, dtype=dt, device=dev)
+        for Tt in range(nt):
+            acc = torch.zeros(row.shape[0], Bn, T, dtype=dt, device=dev)
+            for U in range(nt):
+                t = index[(min(U, Tt), max(U, Tt))]
+                if U < Tt:
+                    acc = acc + col[:, :, t]
+                elif U == Tt:
+                    acc = acc + row[:, :, t]
+                    acc = acc + col[:, :, t]
+                else:
+                    acc = acc + row[:, :, t]
+            out[:, :, Tt * T:(Tt + 1) * T] = acc
+        return out
+
+    cache = {}
+    if plan.use_gb:
+        # ---- pass 1: descreening sums; the pair cache -------------------
+        def born(k):
+            j, ok, d = step(k)
+            r2 = r2_of(d, ok)
+            inv_r = torch.rsqrt(r2)
+            r, inv_r2 = r2 * inv_r, inv_r * inv_r
+            w = _pair_w(plan, r, inv_r, inv_r2, COULOMB * q[rows] * q[j],
+                        rmh[rows] + rmh[j], seps[rows] * seps[j],
+                        qq[rows, j])
+            Iij, Dij = _descreen(r, inv_r, inv_r2, sr[j], orad[rows])
+            Iji, Dji = _descreen(r, inv_r, inv_r2, sr[rows], orad[j])
+            cache[k] = [torch.where(ok, v, 0.0) for v in (Dij, Dji, w)]
+            return (torch.where(ok, Iij, 0.0)[None],
+                    torch.where(ok, Iji, 0.0)[None])
+
+        Ii = gather(*sweep(born, 1))[0]
+        psi = Ii * orad
+        th = torch.tanh(psi - 0.8 * psi ** 2 + 4.85 * psi ** 3)
+        Bv = torch.maximum(1.0 / (1.0 / orad - th / rad), orad)
+        dBdpsi = Bv * Bv * (1.0 - th * th) * (1.0 - 1.6 * psi
+                                               + 14.55 * psi ** 2) / rad
+        real = torch.arange(Ap, device=dev) < A
+        Bv = torch.where(real, Bv, 1.0)
+        invB = torch.where(real, 1.0 / Bv, 1.0)
+
+        # ---- pass 2: dE/dB sums; w + 2 dE/dr^2 into the cache -----------
+        def gb_pair(k):
+            j, ok, d = step(k)
+            r2 = r2_of(d, ok)
+            Bi, Bj = Bv[:, rows], Bv[:, j]
+            t = r2 * (0.25 * invB[:, rows]) * invB[:, j]
+            expo = torch.exp(-t)
+            rsf = torch.rsqrt(r2 + Bi * Bj * expo)
+            pq = PREF * (q[rows] * q[j]) * (-0.5) * (rsf * rsf * rsf)
+            base = torch.where(ok, pq * expo * (1.0 + t), 0.0)
+            cache[k][2] = cache[k][2] + torch.where(
+                ok, 2.0 * (2.0 * pq * (1.0 - expo / 4.0)), 0.0)
+            return (base * Bj)[None], (base * Bi)[None]
+
+        acc = gather(*sweep(gb_pair, 1))[0]
+        ra, r3 = rad + 0.14, rad ** 3
+        dEdB = (PREF * (-(q ** 2) * invB * invB)
+                + SA * (ra * ra) * (r3 * r3) * (invB ** 6 * invB))
+        dEdB = dEdB + 2.0 * acc
+        g = torch.where(real, dEdB * dBdpsi * orad, 0.0)
+
+    # ---- pass 3: forces ----------------------------------------------------
+    def force(k):
+        j, ok, d = step(k)
+        if plan.use_gb:
+            Dij, Dji, w = cache[k]
+            c = w + g[:, rows] * Dij + g[:, j] * Dji
+        else:
+            r2 = r2_of(d, ok)
+            inv_r = torch.rsqrt(r2)
+            c = _pair_w(plan, r2 * inv_r, inv_r, inv_r * inv_r,
+                        COULOMB * q[rows] * q[j], rmh[rows] + rmh[j],
+                        seps[rows] * seps[j], qq[rows, j])
+        e = torch.where(ok[..., None], c[..., None] * d, 0.0)
+        e = e.permute(3, 0, 1, 2)
+        return -e, e
+
+    F = gather(*sweep(force, 3))                           # (3, B, Ap)
+    return F.permute(1, 2, 0)[:, :A].reshape(Bn, 3 * A)
+
+
+# ==========================================================================
 # Wrapper: plain version on the CPU, the kernel on the card
 # ==========================================================================
 
 class GBForce(LK.CudaKernel):
     """``gb_force(plan, x)``: (B, 3A) -> (B, 3A) nonbonded (+ OBC2)
-    forces."""
+    forces, launched at ``launch_shape(plan)``."""
 
     name, source = "gb_force", "gb_force.cu"
 
     def _declare(self, lib):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gb_force.argtypes = ([p, p, i, i, p, p, i, i, f, f, f, f, i]
-                                 + [f] * 6 + [p])
+                                 + [f] * 6 + [i, i, p])
         lib.gb_force.restype = i
+        lib.gb_force_max_clusters.argtypes = [i, i, i, i]
+        lib.gb_force_max_clusters.restype = i
+
+    def max_clusters(self, plan: GBPlan) -> int:
+        """Clusters the card holds at once at this plan's launch shape
+        (CUDA's occupancy query; needs the card)."""
+        return self.lib().gb_force_max_clusters(
+            plan.A, int(plan.use_gb), *launch_shape(plan))
 
     def __call__(self, plan: GBPlan, x):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != plan.dim:
@@ -318,10 +560,10 @@ class GBForce(LK.CudaKernel):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gb_force(
             x.data_ptr(), f.data_ptr(), x.shape[0], plan.A,
-            tb["tab"].data_ptr(), tb["qq_t"].data_ptr(), int(plan.use_gb),
+            tb["tab"].data_ptr(), tb["qq"].data_ptr(), int(plan.use_gb),
             int(plan.use_rf), plan.cutoff, plan.krf, COULOMB, PREF,
             int(plan.box is not None), bx, by, bz, 1.0 / bx, 1.0 / by,
-            1.0 / bz, stream)
+            1.0 / bz, *launch_shape(plan), stream)
         self._raise(err, "gb_force")
         self.launches += 1
         return f

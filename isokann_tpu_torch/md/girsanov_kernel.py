@@ -5,8 +5,8 @@ wrappers that choose between them.
 Counterpart of ``isokann_tpu/md/pallas_md.py:aboba_girsanov_fused`` (the
 TPU kernel, with ``ChiBiasPlan`` and ``make_chi_grad_fn``).  The CUDA
 source is ``csrc/aboba_girsanov.cu``; its header states the design and the
-bound.  It shares the force field with kernel A through
-``csrc/md_forces.cuh``.
+bound.  It shares kernel A's warp force routine and tables
+(``csrc/warp_forces.cuh``).
 
 - ``GirsanovPlan``: kernel A's ``LangevinPlan`` tables, the ABOBA
   constants (a, famp, 1/famp, forcescale sigma^2 per coordinate) and the
@@ -15,6 +15,9 @@ bound.  It shares the force field with kernel A through
   tensor ops.  dchi/df comes from ``torch.autograd`` on the port's ``MLP``,
   so on the card the kernel's hand-written backward is held against
   autograd.
+- ``backproject_gather``: the kernel's bias back-projection in tensor ops,
+  a per-atom gather over its partners in ascending order (the plain
+  version scatters with ``index_add_``).
 - ``chi_grad`` / ``aboba_girsanov``: the wrappers.  A CPU tensor takes the
   plain version; a CUDA tensor launches the kernel or raises.  Each
   wrapper counts its kernel launches in ``.launches``.
@@ -149,6 +152,25 @@ def step_ops(plan: GirsanovPlan) -> float:
                  + 10 * r3)
 
 
+def kernel_ops(plan: GirsanovPlan) -> float:
+    """Float operations per walker per step that kernel B executes:
+    ``step_ops`` with kernel A's force routine as A executes it
+    (``LK.kernel_ops``: each nonbonded pair from both sides, the bonded
+    slots summed per atom) and the back-projection gathered from both
+    atoms' sides (the pair's d again, c d and the sum on each side: 9 more
+    a pair, and 18 more under minimum image)."""
+    lp = plan.lplan
+    again = 9 + (18 if lp.box is not None else 0)
+    return (step_ops(plan) + LK.kernel_ops(lp) - LK.step_ops(lp)
+            + float(lp.np * again))
+
+
+def blocks(nwalkers: int) -> int:
+    """Blocks kernel B starts for ``nwalkers`` walkers (one warp each, as
+    kernel A)."""
+    return LK.blocks(nwalkers)
+
+
 def bound_ms(plan: GirsanovPlan, nwalkers: int, nsteps: int):
     """Least time on an H100 for ``nsteps`` biased steps of ``nwalkers``
     walkers, and what bounds it: operations over the FP32 peak, or q, p
@@ -224,6 +246,30 @@ def aboba_girsanov_plain(plan: GirsanovPlan, model, x, p, nsteps: int,
     return q, p, logw
 
 
+def backproject_gather(lp: LK.LangevinPlan, x, c):
+    """sum_p c_p dr_p/dq as kernel B gathers it: atom a adds c_p (x_a - x_b)
+    (minimum-imaged when periodic) over its partners b = 0..N-1 in
+    ascending order, p the pair row of {a, b}.  x (B, 3N), c (B, np) ->
+    (B, N, 3)."""
+    B, n = x.shape[0], lp.natoms
+    X = x.reshape(B, n, 3)
+    pidx = np.zeros((n, n), np.int64)
+    pidx[lp.pairs[:, 0], lp.pairs[:, 1]] = np.arange(lp.np)
+    pidx = pidx + pidx.T
+    pidx = torch.as_tensor(pidx, device=x.device)
+    box = (torch.tensor(lp.box, dtype=x.dtype, device=x.device)
+           if lp.box is not None else None)
+    G = torch.zeros_like(X)
+    for b in range(n):
+        d = X - X[:, b:b + 1]
+        if box is not None:
+            d = d - box * torch.round(d * (1.0 / box))
+        cb = c[:, pidx[:, b]]                               # (B, N)
+        cb[:, b] = 0.0
+        G = G + cb[..., None] * d
+    return G
+
+
 # ==========================================================================
 # Wrappers: plain version on the CPU, the kernel on the card
 # ==========================================================================
@@ -255,7 +301,7 @@ class _GirsanovLib(LK.CudaKernel):
         lib.ag_chi_grad.argtypes = [p, p, p, i] + layout + [p]
         lib.ag_chi_grad.restype = i
         lib.ag_aboba_girsanov.argtypes = (
-            [p, p, p, i, p, p] + LK.GEOMETRY_ARGTYPES + [p] + layout
+            [p, p, p, i, p, p, p, p, i] + LK.GEOMETRY_ARGTYPES + [p] + layout
             + [i, ctypes.c_ulonglong, i, f, f, f, f, f, p])
         lib.ag_aboba_girsanov.restype = i
 
@@ -321,8 +367,8 @@ class AbobaGirsanov(_GirsanovLib):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ag_aboba_girsanov(
             q.data_ptr(), p.data_ptr(), logw.data_ptr(), x.shape[0],
-            tb["itab"].data_ptr(), tb["ftab"].data_ptr(),
-            *lp.geometry_args(), gt["gtab"].data_ptr(), params.data_ptr(),
+            *LK._table_args(lp, tb), *lp.geometry_args(),
+            gt["gtab"].data_ptr(), params.data_ptr(),
             *plan.layout_args(), int(nsteps), seed, int(bool(noise)), lp.dt,
             plan.a_o, float(b), float(qrate), float(Tmax), stream)
         self._raise(err, "aboba_girsanov")

@@ -1,7 +1,9 @@
 """Port parity of kernel D's module: the OBC2 system build, GBSA energies,
 the plain nonbonded + GBSA force (``gb_kernel.gb_force_plain``) against the
-JAX TPU kernel run in interpret mode, and ``force_flat_hybrid`` /
-``force_flat`` against JAX ``force_flat`` on trp-cage (CPU)."""
+JAX TPU kernel run in interpret mode, the kernel's tile order
+(``gb_kernel.gb_force_tiled``) against the plain version and the JAX
+package's upper-triangle tiling, and ``force_flat_hybrid`` / ``force_flat``
+against JAX ``force_flat`` on trp-cage (CPU)."""
 
 import os
 
@@ -153,22 +155,124 @@ def test_energy_terms_with_gbsa_match_jax(trpcage):
 
 
 def test_step_ops_and_bound(trpcage):
-    """The operation count grows with the ordered pairs and the passes,
+    """The operation counts per unordered pair, each with its derivation,
     and the function is operation-bound at the path's batch sizes."""
     _, ts, _, _ = trpcage
     plan = GB.GBPlan(ts)
+    pairs = 313 * 312 // 2
     ops = GB.step_ops(plan)
-    assert 150 * 313 * 312 < ops < 400 * 313 * 312
+    # once a pair: geometry 10, LJ + Coulomb 23, accumulation 9, the GB
+    # pair term's shared part 16, dE/dr^2 11; each direction: descreening
+    # 30, df/dB factor 2, dI/dr 47; per atom 40
+    assert ops == (10 + 23 + 9 + 16 + 11 + 2 * (30 + 2 + 47)) * pairs \
+        + 40 * 313
+    assert ops == 227 * pairs + 40 * 313
+    # the kernel recomputes r^2 (8) in pass 2 and d (3) in pass 3
+    assert GB.kernel_ops(plan) == ops + (8 + 3) * pairs
+    assert 1.0 <= GB.kernel_ops(plan) / ops <= 1.10
+    # PR 7-10's count: each ordered pair, symmetric terms twice
+    assert GB.step_ops(plan, ordered=True) == 153 * 313 * 312 + 40 * 313
     vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic"))
-    assert GB.step_ops(vac) < ops / 2
-    # the kernel's repeated pair work is counted apart, not in the bound
-    assert GB.kernel_ops(plan) == 250 * 313 * 312 + 40 * 313
-    assert ops == 153 * 313 * 312 + 40 * 313
+    # vacuum with the reaction field: geometry 10, LJ + Coulomb + RF 33,
+    # accumulation 9, one pass
+    assert GB.step_ops(vac) == (10 + 33 + 9) * pairs
     assert GB.kernel_ops(vac) == GB.step_ops(vac)
+    assert GB.step_ops(vac) < ops / 2
     for b in (1, 1024):
         ms, by = GB.bound_ms(plan, b)
         assert by == "operations"
         assert ms == pytest.approx(1e3 * ops * b / 67e12)
+        ms_ord, _ = GB.bound_ms(plan, b, ordered=True)
+        assert ms_ord == pytest.approx(ms * GB.step_ops(plan, ordered=True)
+                                       / ops)
+
+
+def test_blocks_and_tiles(trpcage):
+    """One cluster a walker, of 8 blocks of 8 warps where a block's shared
+    memory fits and of 16 where it does not, so B=1 spreads over at least
+    8 SMs; trp-cage is 10 tiles and 55 tile pairs, villin-sized 588 atoms
+    19 and 190, the 640-atom limit 20 and 210."""
+    _, ts, _, _ = trpcage
+    plan = GB.GBPlan(ts)
+    assert GB.launch_shape(plan) == (8, 8)
+    assert GB.blocks(plan, 1) == (8, 1)
+    assert GB.blocks(plan, 1024) == (8192, 1024)
+    assert GB.tiles(plan) == 10 and len(GB.tile_pairs(plan)) == 55
+    # 13 per-atom rows of 320, 7 tile pairs of partials and pair caches
+    assert GB.smem_bytes(plan, 8) == 4 * (13 * 320 + 7 * (192 + 3072))
+    vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic"))
+    assert GB.smem_bytes(vac, 8) == 4 * (13 * 320 + 7 * 192)
+    for A, nt in ((588, 19), (640, 20)):
+        stub = type("P", (), {"A": A, "use_gb": True})()
+        assert GB.tiles(stub) == nt
+        assert len(GB.tile_pairs(stub)) == nt * (nt + 1) // 2
+        assert GB.smem_bytes(stub, 8) > GB.SMEM_LIMIT
+        assert GB.smem_bytes(stub, 16) <= GB.SMEM_LIMIT
+        assert GB.launch_shape(stub) == (16, 8)
+        assert GB.blocks(stub, 3) == (48, 3)
+
+
+@pytest.mark.parametrize("A", [22, 313, 588])
+def test_tile_order_visits_each_unordered_pair_once(A):
+    """The kernel's visiting rule (tile pairs J >= I, lane l meets column
+    (l + k) mod 32 at step k, i < j on the diagonal, atoms < A) takes every
+    unordered pair exactly once."""
+    nt = -(-A // 32)
+    lane = np.arange(32)
+    seen = np.zeros((A, A), np.int64)
+    for I in range(nt):
+        for J in range(I, nt):
+            for k in range(32):
+                c = (lane + k) % 32
+                i, j = I * 32 + lane, J * 32 + c
+                ok = (i < A) & (j < A) & ((I != J) | (c > lane))
+                np.add.at(seen, (i[ok], j[ok]), 1)
+    assert np.array_equal(seen, np.triu(np.ones((A, A), np.int64), 1))
+
+
+def _wrapped_alanine():
+    pdb = alanine_dipeptide_pdb()
+    ts = build_system(pdb)
+    plan = GB.GBPlan(ts)
+    xs = _walkers(pdb, 4, 0.005).reshape(4, -1, 3)
+    shift = np.random.default_rng(1).integers(-1, 2, size=xs.shape)
+    xw = (xs + shift * np.asarray(plan.box, np.float32)).astype(
+        np.float32).reshape(4, -1)
+    return plan, xw
+
+
+@pytest.mark.parametrize("case", ["alanine_vacuum_rf",
+                                  "alanine_periodic_rf_wrapped",
+                                  "trpcage_obc2"])
+def test_tiled_order_matches_plain(case, trpcage):
+    """The kernel's order in tensor ops (``gb_force_tiled``) against the
+    plain version, 1e-5 relative to the largest force."""
+    if case == "alanine_vacuum_rf":
+        pdb = alanine_dipeptide_pdb()
+        plan = GB.GBPlan(build_system(pdb, method="CutoffNonPeriodic"))
+        xs = _walkers(pdb, 4, 0.005)
+    elif case == "alanine_periodic_rf_wrapped":
+        plan, xs = _wrapped_alanine()
+        assert plan.box is not None
+    else:
+        _, ts, xs, _ = trpcage
+        plan = GB.GBPlan(ts)
+        assert plan.use_gb
+    x = torch.as_tensor(xs)
+    ref = GB.gb_force_plain(plan, x).numpy()
+    got = GB.gb_force_tiled(plan, x).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
+
+
+def test_tiled_order_matches_tpu_tri_kernel_on_trpcage(trpcage):
+    """``gb_force_tiled`` against the JAX package's upper-triangle tiling
+    (``_force_one_walker_tri``) in interpret mode, at the full-grid test's
+    1e-5 relative to the largest force."""
+    js, ts, xs, _ = trpcage
+    ref = np.asarray(gb_force_pallas(js, jnp.asarray(xs), interpret=True,
+                                     tri=True))
+    got = GB.gb_force_tiled(GB.GBPlan(ts), torch.as_tensor(xs)).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-5
 
 
 def test_wrapper_takes_plain_on_cpu_and_raises_elsewhere(trpcage):

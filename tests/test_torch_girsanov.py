@@ -166,9 +166,50 @@ def test_step_ops_and_bound(sim, tmodel):
     macs = 231 * 38 + 38 * 6 + 6 * 1
     ops = GK.step_ops(plan)
     assert ops > LK.step_ops(sim.plan) + 4 * macs
+    assert ops == 66917                       # alanine, pairnet 231-38-6-1
     ms, by = GK.bound_ms(plan, 256, 100)
     assert by == "operations"
     assert ms == pytest.approx(1e3 * ops * 256 * 100 / LK.H100_FP32_PEAK)
+
+
+def test_kernel_ops_and_blocks(sim, tmodel):
+    """Kernel B executes ``step_ops`` with kernel A's force routine as A
+    executes it and the back-projection from both atoms' sides (9 more a
+    pair, 18 more under minimum image: alanine is periodic); one warp a
+    walker, four a block."""
+    plan = GK.GirsanovPlan.for_model(sim.plan, tmodel, 0.5)
+    lp = sim.plan
+    assert lp.box is not None
+    assert GK.kernel_ops(plan) == (GK.step_ops(plan) + LK.kernel_ops(lp)
+                                   - LK.step_ops(lp) + lp.np * (9 + 18))
+    assert 1.0 < GK.kernel_ops(plan) / GK.step_ops(plan) < 1.3
+    assert [GK.blocks(b) for b in (1, 4, 5, 256, 512, 16384)] == \
+        [1, 1, 2, 64, 128, 4096]
+
+
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_backprojection_gather_matches_index_add(sim, golden, wrapped):
+    """The kernel's back-projection, each atom gathering c_p (x_a - x_b)
+    over its partners in ascending order, equals the plain version's
+    ``index_add_`` scatter of c_p d_p at 1e-6 relative to its largest
+    entry, on golden alanine frames (CutoffPeriodic) and with atoms moved
+    by whole box lengths."""
+    lp = sim.plan
+    xs = torch.as_tensor(golden[0][:8])
+    B, n = xs.shape[0], lp.natoms
+    if wrapped:
+        shift = np.random.default_rng(5).integers(-1, 2, size=(B, n, 3))
+        xs = (xs.reshape(B, n, 3) + torch.as_tensor(
+            shift * np.asarray(lp.box), dtype=torch.float32)).reshape(B, -1)
+    c = torch.as_tensor(np.random.default_rng(6).normal(size=(B, lp.np)),
+                        dtype=torch.float32)
+    d, _ = LK.pair_delta(lp, xs.reshape(B, n, 3))
+    tb = lp.on("cpu")
+    ref = torch.zeros(B, n, 3)
+    ref.index_add_(1, tb["pairs"][:, 0], c[..., None] * d)
+    ref.index_add_(1, tb["pairs"][:, 1], -c[..., None] * d)
+    got = GK.backproject_gather(lp, xs, c)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
 
 
 # ---- optcontrol ---------------------------------------------------------
@@ -493,7 +534,8 @@ def test_girsanov_plan_rejects_models_the_kernel_does_not_take(sim):
 
 def test_build_hash_covers_included_headers(tmp_path):
     """An edit of a header that a source includes changes the library's
-    name, so it forces a rebuild."""
+    name, so it forces a rebuild; kernels A and B both include the shared
+    warp force routine."""
     (tmp_path / "k.cu").write_text('#include "h.cuh"\nint f();\n')
     (tmp_path / "h.cuh").write_text('#include "g.cuh"\n')
     (tmp_path / "g.cuh").write_text("// one\n")
@@ -503,6 +545,7 @@ def test_build_hash_covers_included_headers(tmp_path):
     before = _build.digest(src)
     (tmp_path / "g.cuh").write_text("// two\n")
     assert _build.digest(src) != before
-    real = os.path.join(_build._PKG, "csrc", "aboba_girsanov.cu")
-    assert "md_forces.cuh" in [os.path.basename(p)
-                               for p in _build._sources(real)]
+    for name in ("langevin_middle.cu", "aboba_girsanov.cu"):
+        real = os.path.join(_build._PKG, "csrc", name)
+        assert "warp_forces.cuh" in [os.path.basename(p)
+                                     for p in _build._sources(real)], name
