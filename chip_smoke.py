@@ -52,10 +52,14 @@ port's entry points:
 
 It times the kernels: E whole (its ``ms``, layout and sweep, as an MD
 step pays it) and its sweep alone (``sweep_ms``), and E's layout kernel
-against ``kernel_records``, its plain version; D also on villin.  Besides
-each kernel against its plain version, it holds that a walker's result
-does not depend on the batch: row 0 of a batch equals the walker alone,
-bit for bit, for D (B=37 and 1024) and B (B=256, noiseless and noisy).
+against ``kernel_records``, its plain version; D also on villin; C and
+C′ warm (``ms``: the inputs of the previous launch in the L2, as on the
+path) and cold (``cold_ms``: behind a 128 MB write).  Besides each
+kernel against its plain version, it holds that a walker's result does
+not depend on the batch: row 0 of a batch equals the walker alone, bit
+for bit, for D (B=37 and 1024), B (B=256, noiseless and noisy) and C′
+(B=37 and 64, which also equals its tiled mirror bit for bit and gives
+the same bits at other launch shapes).
 Each phase prints one line; any failed check exits non-zero.  The last
 two lines are a JSON list of the kernels (launches on their path, error
 against the plain version, times, bound) and ``{"ok": true, "device":
@@ -659,7 +663,7 @@ def main():
                 f"gb_force {label}: the same input gives the same bits")
 
     # villin HP35 (588 atoms, 19 tiles), the largest system of the paths
-    vgplan = GB.GBPlan(build_system(vpdb, implicit="obc2"))
+    vgplan = GB.GBPlan(build_system(vpdb, implicit="obc2", device=dev))
     require(vgplan.A == 588, "villin plan: 588 atoms")
     xv0 = torch.as_tensor(read_pdb(vpdb).coords.reshape(1, -1),
                           dtype=torch.float32, device=dev)
@@ -1218,26 +1222,59 @@ def main():
         ndiff = int((p_k != p_p).sum())
         ae = float((p_k - p_p).abs().max())
         c_err = max(c_err, ae)
-        # the dp of the i < j gather's backward: upper triangular
-        dp = torch.triu(torch.as_tensor(rng.normal(size=(b, nv, nv)),
-                                        dtype=torch.float32, device=dev),
-                        diagonal=1).contiguous()
-        g_k = PK.sqpairdist_bwd(xb, dp)
-        g_p = PK.sqpairdist_bwd_plain(xb, dp)
-        grel = float((g_k - g_p).abs().max() / g_p.abs().max())
-        cb_err = max(cb_err, float((g_k - g_p).abs().max()))
-        print(f"  sqpairdist B={b}: forward {ndiff} of {p_k.numel()} values "
-              f"differ from plain (max abs {ae:.3e}; tol 1e-6 relative); "
-              f"backward, upper-triangular dp: max rel err {grel:.3e} (tol "
-              f"1e-6)")
+        print(f"  sqpairdist_fwd B={b}: {ndiff} of {p_k.numel()} values "
+              f"differ from plain (max abs {ae:.3e}; tol 1e-6 relative)")
         require(float((p_k - p_p).abs().max() / p_p.abs().max()) <= 1e-6,
                 f"sqpairdist_fwd vs plain at B={b}")
-        require(grel <= 1e-6, f"sqpairdist_bwd vs plain at B={b}")
+    # C' at villin's 588 atoms (16-byte copies of dp rows) and at its first
+    # 587 (4-byte copies), with the upper-triangular dp of the i < j
+    # gather's backward and a dense one: against plain, against its tiled
+    # mirror bit for bit, row 0 of each batch equal to the walker alone
     dpd = torch.as_tensor(rng.normal(size=(64, nv, nv)), dtype=torch.float32,
                           device=dev)
+    for n in (nv, nv - 1):
+        for form in ("upper", "dense"):
+            dpn = dpd[:, :n, :n]
+            dpn = (torch.triu(dpn, diagonal=1) if form == "upper"
+                   else dpn).contiguous()
+            alone = None
+            for b in (1, 37, 64):
+                xb = xv[:b, :n].contiguous()
+                g_k = PK.sqpairdist_bwd(xb, dpn[:b])
+                g_p = PK.sqpairdist_bwd_plain(xb, dpn[:b])
+                grel = float((g_k - g_p).abs().max() / g_p.abs().max())
+                cb_err = max(cb_err, float((g_k - g_p).abs().max()))
+                alone = g_k[0] if alone is None else alone
+                same = "" if b == 1 else (
+                    f", row 0 = B=1 bit for bit: "
+                    f"{torch.equal(g_k[0], alone)}")
+                print(f"  sqpairdist_bwd N={n} {form} dp B={b}: max rel err "
+                      f"{grel:.3e} (tol 1e-6){same}")
+                require(grel <= 1e-6,
+                        f"sqpairdist_bwd vs plain, N={n}, {form}, B={b}")
+                require(torch.equal(g_k[0], alone),
+                        f"sqpairdist_bwd row 0 at B={b} = B=1, N={n}, {form}")
+            tiled = torch.equal(g_k[:37], PK.sqpairdist_bwd_tiled(
+                xb[:37], dpn[:37]))
+            print(f"  sqpairdist_bwd N={n} {form} dp B=37: the tiled mirror's "
+                  f"bits: {tiled}")
+            require(tiled, f"sqpairdist_bwd = its tiled mirror, N={n}, {form}")
+    # the same bits on a repeat and at other launch shapes
+    g_k = PK.sqpairdist_bwd(xv, dpd)
+    shape0 = PK.launch_shape
+    shapes = ((1, 1), (7, 4), (48, 2), (3, 8))
+    try:
+        for shape in shapes:
+            PK.launch_shape = lambda n, b, s=shape: s
+            require(torch.equal(PK.sqpairdist_bwd(xv, dpd), g_k),
+                    f"sqpairdist_bwd: the same bits at {shape}")
+    finally:
+        PK.launch_shape = shape0
+    print(f"  sqpairdist_bwd B=64 dense dp: the same bits at "
+          f"{PK.launch_shape(nv, 64)} (the wrapper's) and at {shapes} "
+          f"(blocks a walker, warps a block)")
     require(torch.equal(PK.sqpairdist_fwd(xv), PK.sqpairdist_fwd(xv))
-            and torch.equal(PK.sqpairdist_bwd(xv, dpd),
-                            PK.sqpairdist_bwd(xv, dpd)),
+            and torch.equal(PK.sqpairdist_bwd(xv, dpd), g_k),
             "sqpairdist: the same input gives the same bits")
 
     iu, ju = (torch.as_tensor(a, device=dev) for a in np.triu_indices(nv, 1))
@@ -1281,30 +1318,67 @@ def main():
     require(brel <= 1e-6 and float(fb_p.abs().max()) > 0,
             "optcontrol bias force, kernel vs plain route")
     phase("sqpairdist_vs_plain", t0, "forward and backward at B=1/37/64, "
-                                     "same bits, feature gradient, bias")
+                                     "N=588/587, tiled mirror, same bits, "
+                                     "feature gradient, bias")
 
     # ---- 17. sqpairdist timing -------------------------------------------------
+    # Each launch between its own events, behind a device-side wait (warm:
+    # the inputs of the previous launch, in the 50 MB L2 at B <= 32, as on
+    # the path, where the gather's backward has just written dp) or behind a
+    # 128 MB write (cold).
     t0 = time.perf_counter()
-    c_ms, cb_ms, c_plain, cb_plain, c_lib = {}, {}, {}, {}, {}
+    flush = torch.zeros(32 * 2**20, device=dev)
+    c_ms, cb_ms, c_cold, cb_cold = {}, {}, {}, {}
+    c_plain, cb_plain, c_lib = {}, {}, {}
+
+    def event_ms(fn, reps, cold):
+        fn()
+        pairs = []
+        for _ in range(reps):
+            if cold:
+                flush.add_(1.0)
+            else:
+                torch.cuda._sleep(200_000)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(e) for a, e in pairs) / reps
+
     for b in (1, 32, 1024):
         xb = xv.repeat(-(-b // 64), 1, 1)[:b].contiguous()
         dp = torch.triu(torch.ones(b, nv, nv, device=dev), diagonal=1)
         reps = 20 if b < 1024 else 5
-        c_ms[b] = cuda_ms(lambda: PK.sqpairdist_fwd(xb), reps=reps)
-        cb_ms[b] = cuda_ms(lambda: PK.sqpairdist_bwd(xb, dp), reps=reps)
+        fwd = lambda: PK.sqpairdist_fwd(xb)            # noqa: E731
+        bwd = lambda: PK.sqpairdist_bwd(xb, dp)        # noqa: E731
+        c_ms[b], c_cold[b] = event_ms(fwd, reps, False), event_ms(fwd, reps,
+                                                                  True)
+        cb_ms[b], cb_cold[b] = event_ms(bwd, reps, False), event_ms(bwd, reps,
+                                                                    True)
         c_plain[b] = cuda_ms(lambda: PK.sqpairdist_fwd_plain(xb), reps=3)
         cb_plain[b] = cuda_ms(lambda: PK.sqpairdist_bwd_plain(xb, dp), reps=3)
         c_lib[b] = cuda_ms(lambda: torch.cdist(
             xb, xb, compute_mode="donot_use_mm_for_euclid_dist"), reps=reps)
         del dp
-        for name, ms_, plain in (("fwd", c_ms[b], c_plain[b]),
-                                 ("bwd", cb_ms[b], cb_plain[b])):
+        for name, warm, cold, plain in (
+                ("fwd", c_ms[b], c_cold[b], c_plain[b]),
+                ("bwd", cb_ms[b], cb_cold[b], cb_plain[b])):
             bb, by = PK.bound_ms(name, b, nv)
             lib = (f", torch.cdist {c_lib[b]:.4f} ms" if name == "fwd"
                    else ", no library call")
-            print(f"  sqpairdist_{name} B={b} N={nv}: {ms_:.4f} ms, bound "
-                  f"{bb:.4f} ms ({by}, {bb / ms_:.2%} of it), plain "
+            print(f"  sqpairdist_{name} B={b} N={nv}: warm {warm:.4f} ms, "
+                  f"cold {cold:.4f} ms, bound {bb:.4f} ms ({by}, "
+                  f"{bb / warm:.2%} / {bb / cold:.2%} of it), plain "
                   f"{plain:.4f} ms{lib} {stamp}")
+    kb = PK.kernel_bytes("bwd", 32, nv) / PK.step_bytes("bwd", 32, nv)
+    shapes = [PK.launch_shape(nv, b) for b in (1, 32, 1024)]
+    print(f"  sqpairdist_bwd N={nv}: kernel_bytes / step_bytes {kb:.4f} "
+          f"(dp read once; its partial sums written and read once); launch "
+          f"shape at B=1/32/1024 {shapes} (blocks a walker, warps a block)")
+    del flush
     # ms a biased hybrid step at B = 32, and the share of C + C' in it
     stub.data.featurizer = vsim.featurizer
     bias_t = itt.optcontrol(stub, forcescale=0.5)
@@ -1384,6 +1458,7 @@ def main():
         "source": "isokann_tpu_torch/csrc/sqpairdist.cu",
         "replaces": "isokann_tpu/ops/pairdists.py:168",
         "launches": c_launches, "max_abs_err": c_err, "ms": c_ms[32],
+        "cold_ms": c_cold[32],
         "plain_ms": c_plain[32], "bound_ms": PK.bound_ms("fwd", 32, nv)[0],
         "bound_by": PK.bound_ms("fwd", 32, nv)[1], "library_ms": c_lib[32],
     }, {
@@ -1391,6 +1466,7 @@ def main():
         "source": "isokann_tpu_torch/csrc/sqpairdist.cu",
         "replaces": "isokann_tpu/ops/pairdists.py:195",
         "launches": cb_launches, "max_abs_err": cb_err, "ms": cb_ms[32],
+        "cold_ms": cb_cold[32],
         "plain_ms": cb_plain[32], "bound_ms": PK.bound_ms("bwd", 32, nv)[0],
         "bound_by": PK.bound_ms("bwd", 32, nv)[1], "library_ms": None,
     }]

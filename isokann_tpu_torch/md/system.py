@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from . import amber
 from .pdbio import PDBStructure, read_pdb
 from .topology import Topology, build_topology
@@ -180,8 +181,10 @@ def _dispersion_sums(rmin_half, eps):
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
                  eps_rf: float = 78.5, implicit: Optional[str] = None,
                  dispersion_correction: bool = True, dense_pairs="auto",
-                 device="cpu") -> MDSystem:
-    """MDSystem from a PDB path / PDBStructure / Topology.
+                 device=None) -> MDSystem:
+    """MDSystem from a PDB path / PDBStructure / Topology, its tensors on
+    ``device`` (the GPU unless the caller names another; with no GPU and no
+    device this raises).
 
     ``method="auto"`` picks CutoffPeriodic when the PDB has a box and
     CutoffNonPeriodic otherwise, as the reference does.
@@ -190,6 +193,7 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     matrices, False only the sparse exception list (forces then run
     through the cell-list engine, which needs CutoffPeriodic), "auto"
     switches at ``DENSE_PAIRS_MAX`` atoms."""
+    device = resolve_device(device)
     box = None
     if isinstance(source, str):
         struct = read_pdb(source)

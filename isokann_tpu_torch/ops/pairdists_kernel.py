@@ -11,13 +11,17 @@ under the ``jax.custom_vjp`` ``sqpairdist_fused``.  The CUDA source is
   in tensor ops, the forward rounded per operation in the kernel's order
   (the same bits as the kernel), the backward in float64 and rounded once.
   The CPU tests and ``chip_smoke.py`` hold the kernels against them.
+- ``sqpairdist_bwd_tiled``: C′ in tensor ops in the kernel's tile-pair
+  order (the kernel's bits), for the CPU tests; nothing on the main path
+  calls it.
 - ``sqpairdist_fwd`` / ``sqpairdist_bwd``: the wrappers.  A CPU tensor
   takes the plain version; a CUDA tensor launches the kernel or raises;
   any other device raises.  ``.launches`` counts the launches.
 - ``sqpairdist_fused``: a ``torch.autograd.Function`` whose forward is the
   forward wrapper and whose backward is the backward wrapper;
   ``sqpairdist_fused_plain`` is the same function over the plain versions.
-- ``step_ops`` / ``step_bytes`` / ``bound_ms``: what the functions need.
+- ``step_ops`` / ``step_bytes`` / ``bound_ms``: what the functions need;
+  ``kernel_bytes``: what the kernels move; ``launch_shape``: C′'s grid.
 """
 
 from __future__ import annotations
@@ -29,6 +33,10 @@ import torch
 from ..md import langevin_kernel as LK
 
 MAX_WALKERS = 65535      # a grid dimension of the CUDA launch
+TILE = 32                # atoms of a tile side
+WARPS = 4                # warps a block of C′
+SMS = 132                # streaming multiprocessors of an H100 SXM
+PART_BYTES = 2 * 3 * TILE * 8   # a tile pair's row and column partial sums
 
 
 # ==========================================================================
@@ -58,6 +66,62 @@ def sqpairdist_bwd_plain(x, dp):
         c = xd[..., k]
         out.append(torch.sum(s * (c[:, :, None] - c[:, None, :]), dim=2))
     return (2.0 * torch.stack(out, dim=-1)).to(x.dtype)
+
+
+def tiles(natoms: int) -> int:
+    """32-atom tiles of ``natoms`` atoms."""
+    return -(-natoms // TILE)
+
+
+def tile_pairs(natoms: int) -> int:
+    """Tile pairs (I, J), J >= I: the work items of C′."""
+    nt = tiles(natoms)
+    return nt * (nt + 1) // 2
+
+
+def sqpairdist_bwd_tiled(x, dp):
+    """C′ in the CUDA kernel's order, (B, N, 3), (B, N, N) -> (B, N, 3):
+    in tile pair (I, J), J >= I, p = s_ij (x_i - x_j) in double
+    (s = dp_ij + dp_ji); row atom i's partial adds p over the columns of
+    each group of 8 in order and combines the four groups as (P0 + P2) +
+    (P1 + P3); column atom j's partial subtracts p over the rows of each
+    group of 4 in order and combines the eight groups as ((Q0 + Q4) + (Q2 +
+    Q6)) + ((Q1 + Q5) + (Q3 + Q7)) (on the diagonal tile pair only the row
+    partials, over all ordered pairs).  Atom 32 T + l then adds, in
+    ascending order of the other tile U, the column partial of (U, T) for
+    U < T and the row partial of (T, U) for U >= T; dx = 2 acc rounded to
+    float.  Every operation is a rounded double operation, as the kernel's,
+    so the two give the same bits."""
+    Bn, N = x.shape[:2]
+    nt, T = tiles(N), TILE
+    Np = nt * T
+    X = torch.zeros(Bn, Np, 3, dtype=torch.float64, device=x.device)
+    X[:, :N] = x.double()
+    S = torch.zeros(Bn, Np, Np, dtype=torch.float64, device=x.device)
+    S[:, :N, :N] = dp.double()
+    S = S + S.transpose(1, 2)
+    P = S[..., None] * (X[:, :, None, :] - X[:, None, :, :])  # (B, i, j, 3)
+    # row partials R[b, I, r, J]: 4 column groups of 8, each in order
+    Pc = P.reshape(Bn, nt, T, nt, 4, 8, 3)
+    acc = torch.zeros_like(Pc[..., 0, :])
+    for c in range(8):
+        acc = acc + Pc[..., c, :]
+    R = (acc[..., 0, :] + acc[..., 2, :]) + (acc[..., 1, :] + acc[..., 3, :])
+    # column partials C[b, I, J, c]: 8 row groups of 4, each in order
+    Pr = P.reshape(Bn, nt, 8, 4, nt, T, 3)
+    acc = torch.zeros_like(Pr[:, :, :, 0])
+    for r in range(4):
+        acc = acc - Pr[:, :, :, r]
+    t1 = acc[:, :, 0:4] + acc[:, :, 4:8]
+    t2 = t1[:, :, 0:2] + t1[:, :, 2:4]
+    C = t2[:, :, 0] + t2[:, :, 1]
+    # per atom, in ascending order of the other tile
+    below = (torch.arange(nt, device=x.device)[None, :, None, None]
+             > torch.arange(nt, device=x.device)[:, None, None, None])
+    out = torch.zeros(Bn, nt, T, 3, dtype=torch.float64, device=x.device)
+    for u in range(nt):
+        out = out + torch.where(below[u], C[:, u], R[:, :, :, u])
+    return (2.0 * out.reshape(Bn, Np, 3)[:, :N]).to(x.dtype)
 
 
 # ==========================================================================
@@ -91,7 +155,7 @@ class _SqPairDistLib(LK.CudaKernel):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.sqpairdist_fwd.argtypes = [p, p, i, i, p]
         lib.sqpairdist_fwd.restype = i
-        lib.sqpairdist_bwd.argtypes = [p, p, p, i, i, p]
+        lib.sqpairdist_bwd.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.sqpairdist_bwd.restype = i
 
 
@@ -114,9 +178,20 @@ class SqPairDistFwd(_SqPairDistLib):
         return out
 
 
+def launch_shape(natoms: int, nwalkers: int):
+    """C′'s launch, (blocks a walker, warps a block): one wave of two blocks
+    an SM where the batch is small (up to a tile pair a warp: 48 blocks at
+    B=1 and 588 atoms, 8 at B=32), else at most six tile pairs a warp (8
+    blocks).  The bits do not depend on the shape."""
+    most = -(-tile_pairs(natoms) // WARPS)
+    return min(most, max(-(-most // 6), 2 * SMS // nwalkers)), WARPS
+
+
 class SqPairDistBwd(_SqPairDistLib):
     """``sqpairdist_bwd(x, dp)``: (B, N, 3), (B, N, N) -> (B, N, 3), the
-    gradient of sum(dp * sqpairdist(x)) (kernel C′)."""
+    gradient of sum(dp * sqpairdist(x)) (kernel C′: the tile-pair pass into
+    a buffer of partial sums, then the per-atom pass), launched at
+    ``launch_shape(N, B)``."""
 
     def __call__(self, x, dp):
         _check("sqpairdist_bwd", x, dp)
@@ -126,10 +201,12 @@ class SqPairDistBwd(_SqPairDistLib):
         x, dp = x.contiguous(), dp.contiguous()
         B, N = x.shape[:2]
         dx = torch.empty_like(x)
+        part = torch.empty(B * tile_pairs(N) * PART_BYTES // 8,
+                           dtype=torch.float64, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        self._raise(lib.sqpairdist_bwd(x.data_ptr(), dp.data_ptr(),
-                                       dx.data_ptr(), B, N, stream),
-                    "sqpairdist_bwd")
+        self._raise(lib.sqpairdist_bwd(
+            x.data_ptr(), dp.data_ptr(), dx.data_ptr(), part.data_ptr(), B,
+            N, *launch_shape(N, B), stream), "sqpairdist_bwd")
         self.launches += 1
         return dx
 
@@ -192,6 +269,18 @@ def step_bytes(kind: str, nwalkers: int, natoms: int) -> float:
     coords = 4 * 3 * nwalkers * natoms
     square = 4 * nwalkers * natoms * natoms
     return float(coords + square + (coords if kind == "bwd" else 0))
+
+
+def kernel_bytes(kind: str, nwalkers: int, natoms: int) -> float:
+    """Bytes the kernel moves through device memory in one call:
+    ``step_bytes``, plus for C′ its partial sums written and read back once
+    (1,536 bytes a tile pair, 768 on the diagonal).  The coordinates that
+    each tile pair reads again come from the L2 and are not counted."""
+    if kind != "bwd":
+        return step_bytes(kind, nwalkers, natoms)
+    nt = tiles(natoms)
+    part = (tile_pairs(natoms) - nt) * PART_BYTES + nt * PART_BYTES // 2
+    return step_bytes(kind, nwalkers, natoms) + float(2 * nwalkers * part)
 
 
 def bound_ms(kind: str, nwalkers: int, natoms: int):

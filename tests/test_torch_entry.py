@@ -22,6 +22,18 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
         itt.MDSimulation()
 
 
+def test_build_system_no_device_and_no_gpu_raises(monkeypatch):
+    """``build_system`` runs on the card unless the caller names a device;
+    with no GPU and no device it raises, as the other entry points do."""
+    from isokann_tpu_torch.md.fixtures import alanine_dipeptide_pdb
+    from isokann_tpu_torch.md.system import build_system
+    pdb = alanine_dipeptide_pdb()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_system(pdb)
+    assert build_system(pdb, device="cpu").charges.device.type == "cpu"
+
+
 def test_port_imports_no_jax():
     """Every module of the port, imported in a fresh interpreter, pulls in
     neither jax, optax nor the JAX package; the walk covers the modules of

@@ -51,7 +51,7 @@ def trpcage():
     """JAX and port systems of trp-cage in OBC2, 2 walkers at 0.005 nm
     noise, and one compiled JAX ``force_flat`` for them."""
     js = jax_build_system(TRPCAGE, implicit="obc2")
-    ts = build_system(TRPCAGE, implicit="obc2")
+    ts = build_system(TRPCAGE, implicit="obc2", device="cpu")
     xs = _walkers(TRPCAGE, 2, 0.005)
     f_ref = np.asarray(jax.jit(lambda x: jax_force_flat(js, x))(
         jnp.asarray(xs)))
@@ -97,7 +97,8 @@ def test_plain_matches_tpu_kernel_on_alanine(kw):
     non-periodic reaction field: 4 walkers, 1e-5 relative to the largest
     force."""
     pdb = alanine_dipeptide_pdb()
-    js, ts = jax_build_system(pdb, **kw), build_system(pdb, **kw)
+    js, ts = jax_build_system(pdb, **kw), build_system(pdb, **kw,
+                                                        device="cpu")
     xs = _walkers(pdb, 4, 0.005)
     ref = np.asarray(gb_force_pallas(js, jnp.asarray(xs), interpret=True))
     got = GB.gb_force(GB.GBPlan(ts), torch.as_tensor(xs)).numpy()
@@ -111,7 +112,7 @@ def test_plain_minimum_image_matches_tpu_kernel_on_wrapped_atoms():
     relative to the largest force against the JAX kernel on the same
     input."""
     pdb = alanine_dipeptide_pdb()
-    js, ts = jax_build_system(pdb), build_system(pdb)
+    js, ts = jax_build_system(pdb), build_system(pdb, device="cpu")
     plan = GB.GBPlan(ts)
     assert plan.box is not None
     xs = _walkers(pdb, 4, 0.005).reshape(4, -1, 3)
@@ -172,7 +173,8 @@ def test_step_ops_and_bound(trpcage):
     assert 1.0 <= GB.kernel_ops(plan) / ops <= 1.10
     # PR 7-10's count: each ordered pair, symmetric terms twice
     assert GB.step_ops(plan, ordered=True) == 153 * 313 * 312 + 40 * 313
-    vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic"))
+    vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic",
+                                 device="cpu"))
     # vacuum with the reaction field: geometry 10, LJ + Coulomb + RF 33,
     # accumulation 9, one pass
     assert GB.step_ops(vac) == (10 + 33 + 9) * pairs
@@ -200,7 +202,8 @@ def test_blocks_and_tiles(trpcage):
     assert GB.tiles(plan) == 10 and len(GB.tile_pairs(plan)) == 55
     # 13 per-atom rows of 320, 7 tile pairs of partials and pair caches
     assert GB.smem_bytes(plan, 8) == 4 * (13 * 320 + 7 * (192 + 3072))
-    vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic"))
+    vac = GB.GBPlan(build_system(TRPCAGE, method="CutoffNonPeriodic",
+                                 device="cpu"))
     assert GB.smem_bytes(vac, 8) == 4 * (13 * 320 + 7 * 192)
     for A, nt in ((588, 19), (640, 20)):
         stub = type("P", (), {"A": A, "use_gb": True})()
@@ -232,7 +235,7 @@ def test_tile_order_visits_each_unordered_pair_once(A):
 
 def _wrapped_alanine():
     pdb = alanine_dipeptide_pdb()
-    ts = build_system(pdb)
+    ts = build_system(pdb, device="cpu")
     plan = GB.GBPlan(ts)
     xs = _walkers(pdb, 4, 0.005).reshape(4, -1, 3)
     shift = np.random.default_rng(1).integers(-1, 2, size=xs.shape)
@@ -249,7 +252,8 @@ def test_tiled_order_matches_plain(case, trpcage):
     plain version, 1e-5 relative to the largest force."""
     if case == "alanine_vacuum_rf":
         pdb = alanine_dipeptide_pdb()
-        plan = GB.GBPlan(build_system(pdb, method="CutoffNonPeriodic"))
+        plan = GB.GBPlan(build_system(pdb, method="CutoffNonPeriodic",
+                                      device="cpu"))
         xs = _walkers(pdb, 4, 0.005)
     elif case == "alanine_periodic_rf_wrapped":
         plan, xs = _wrapped_alanine()

@@ -147,7 +147,7 @@ def test_gather_order_matches_plain_and_jax(method):
     from the plain version, 1e-5 from the JAX package's ``force_flat``."""
     pdb = alanine_dipeptide_pdb()
     jsys = jax_build_system(pdb, method=method)
-    tsys = build_system(pdb, method=method)
+    tsys = build_system(pdb, method=method, device="cpu")
     plan = LK.LangevinPlan(tsys, 310.0, 1.0, 0.002)
     assert (plan.box is not None) == (method == "CutoffPeriodic")
     xs = np.load(GOLDEN)["xs"][::256][:6]

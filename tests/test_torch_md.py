@@ -35,7 +35,7 @@ INT_FIELDS = ("bond_idx", "angle_idx", "dih_idx")
 @pytest.fixture(scope="module")
 def systems():
     pdb = alanine_dipeptide_pdb()
-    return jax_build_system(pdb), build_system(pdb)
+    return jax_build_system(pdb), build_system(pdb, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +106,7 @@ def test_forces_match_jax_per_term(systems, xs, term):
 def test_nocutoff_forces_match_jax(xs):
     pdb = alanine_dipeptide_pdb()
     js = jax_build_system(pdb, method="NoCutoff")
-    ts = build_system(pdb, method="NoCutoff")
+    ts = build_system(pdb, method="NoCutoff", device="cpu")
     f_ref = np.asarray(jax_force_flat(js, jnp.asarray(xs)))
     x = torch.as_tensor(xs)
     scale = np.abs(f_ref).max()
@@ -118,4 +118,4 @@ def test_nocutoff_forces_match_jax(xs):
 
 def test_unported_method_raises():
     with pytest.raises(NotImplementedError):
-        build_system(alanine_dipeptide_pdb(), method="PME")
+        build_system(alanine_dipeptide_pdb(), method="PME", device="cpu")

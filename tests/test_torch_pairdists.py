@@ -1,10 +1,12 @@
 """Pair-distance featurisation of the port against the JAX package on the
 CPU: the plain versions of kernels C and C′ (``ops.pairdists_kernel``)
 against the TPU kernels ``_sqpairdist_fwd_impl`` / ``_sqpairdist_bwd_impl``
-run in Pallas interpret mode, ``flatpairdists`` and its gradient on both
+run in Pallas interpret mode, C′'s tiled mirror (the CUDA kernel's order
+in tensor ops) against both, ``flatpairdists`` and its gradient on both
 routes, the featurizers and pair selections, the route dispatch, the
 device rule of the wrappers and the bounds.  The CUDA kernels themselves
-are held against the plain versions on the card by ``chip_smoke.py``.
+are held against the plain versions and the mirror on the card by
+``chip_smoke.py``.
 
 The JAX package runs its fused route on the CPU only when asked
 (``use_pallas=True``), and its ``pallas_call`` only in interpret mode:
@@ -100,6 +102,80 @@ def test_backward_plain_matches_tpu_kernel(interpret, case, dense):
     got = PK.sqpairdist_bwd(torch.as_tensor(x), torch.as_tensor(dp)).numpy()
     assert got.shape == x.shape
     assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
+
+
+def _dp(x, dense, seed=1):
+    """(B, N, N) float32 from a seed: normal, or its strict upper triangle
+    (the backward of the i < j gather)."""
+    rng = np.random.default_rng(seed)
+    dp = rng.normal(size=(x.shape[0], x.shape[1], x.shape[1]))
+    return (dp if dense else np.triu(dp, k=1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("nwalkers", [1, 3])
+@pytest.mark.parametrize("dense", [False, True], ids=["upper", "dense"])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_tiled_matches_plain(case, dense, nwalkers):
+    """C′'s tiled mirror against its plain version: 1e-6 of the largest
+    |dx| (both sum in float64 and round once)."""
+    x = _coords(case, nwalkers)
+    dp = _dp(x, dense)
+    got = PK.sqpairdist_bwd_tiled(torch.as_tensor(x), torch.as_tensor(dp))
+    ref = PK.sqpairdist_bwd_plain(torch.as_tensor(x), torch.as_tensor(dp))
+    assert got.shape == ref.shape == x.shape and got.dtype == torch.float32
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("nwalkers", [1, 3])
+@pytest.mark.parametrize("dense", [False, True], ids=["upper", "dense"])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_tiled_matches_tpu_kernel(interpret, case, dense, nwalkers):
+    """C′'s tiled mirror against the TPU kernel in interpret mode: 1e-6 of
+    the largest |dx|."""
+    x = _coords(case, nwalkers)
+    dp = _dp(x, dense)
+    ref = np.asarray(JP._sqpairdist_bwd_impl(jnp.asarray(x),
+                                             jnp.asarray(dp)))
+    got = PK.sqpairdist_bwd_tiled(torch.as_tensor(x),
+                                  torch.as_tensor(dp)).numpy()
+    assert np.abs(got - ref).max() / np.abs(ref).max() < 1e-6
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["upper", "dense"])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_tiled_walker_independent_of_batch(case, dense):
+    """A walker's dx in the kernel's order is the same bits alone and in a
+    batch of 3, and the same bits on a repeat (the kernel's sums follow the
+    tile indices only)."""
+    x = torch.as_tensor(_coords(case, 3))
+    dp = torch.as_tensor(_dp(x, dense))
+    batch = PK.sqpairdist_bwd_tiled(x, dp)
+    for w in range(3):
+        alone = PK.sqpairdist_bwd_tiled(x[w:w + 1], dp[w:w + 1])
+        assert torch.equal(alone[0], batch[w])
+    assert torch.equal(PK.sqpairdist_bwd_tiled(x, dp), batch)
+
+
+def test_backward_launch_shape_and_kernel_bytes():
+    """C′'s grid at villin's width: 190 tile pairs, 48 blocks of 4 warps (a
+    tile pair a warp) at B=1, one wave of two blocks an SM at B=8, 8 blocks
+    (six tile pairs a warp) from B=32 up; its bytes are
+    ``step_bytes`` plus the partial sums written and read once (1,536 bytes
+    a tile pair, 768 on the diagonal), 1.397x at N=588, within 1.45x; C's
+    are ``step_bytes``."""
+    n = 588
+    assert (PK.tiles(n), PK.tile_pairs(n)) == (19, 190)
+    assert PK.launch_shape(n, 1) == (48, 4)
+    assert PK.launch_shape(n, 8) == (33, 4)
+    assert PK.launch_shape(n, 32) == PK.launch_shape(n, 1024) == (8, 4)
+    assert PK.launch_shape(2, 1) == (1, 4)
+    part = 171 * 1536 + 19 * 768
+    for b in (1, 32, 1024):
+        assert PK.kernel_bytes("bwd", b, n) == \
+            PK.step_bytes("bwd", b, n) + 2 * b * part
+        assert PK.kernel_bytes("fwd", b, n) == PK.step_bytes("fwd", b, n)
+    ratio = PK.kernel_bytes("bwd", 32, n) / PK.step_bytes("bwd", 32, n)
+    assert ratio == pytest.approx(1.3969, abs=1e-4) and ratio <= 1.45
 
 
 def _jax_scalar(z):

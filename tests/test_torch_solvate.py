@@ -75,7 +75,7 @@ def test_water_and_ion_parameters_match_jax(salty):
     """HOH, Na+ and Cl- resolve to the same types, charges, masses and LJ
     parameters as in the JAX package (TIP3P OW/HW, parm99 IP/IM)."""
     out, ref = salty
-    s = S.build_system(out, dense_pairs=False)
+    s = S.build_system(out, dense_pairs=False, device="cpu")
     j = jax_build_system(ref, dense_pairs=False)
     for f in ("charges", "masses", "rmin_half", "eps", "bond_idx", "bond_k",
               "bond_r0", "angle_idx", "angle_k", "angle_t0"):
@@ -97,7 +97,7 @@ def test_exception_list_matches_jax(salty, dense):
     both layouts equals the JAX package's; only the dense layout builds
     the (n, n) scale matrices."""
     out, ref = salty
-    s = S.build_system(out, dense_pairs=dense)
+    s = S.build_system(out, dense_pairs=dense, device="cpu")
     j = jax_build_system(ref, dense_pairs=dense)
     assert s.dense_pairs is dense and j.dense_pairs is dense
     np.testing.assert_array_equal(s.excl_idx.numpy(), np.asarray(j.excl_idx))
@@ -113,9 +113,9 @@ def test_exception_list_matches_jax(salty, dense):
 def test_dense_pairs_auto_switch(monkeypatch):
     assert S.DENSE_PAIRS_MAX == jax_system_mod.DENSE_PAIRS_MAX
     out = solvate(read_pdb(ALA), padding=0.55)
-    assert S.build_system(out).dense_pairs
+    assert S.build_system(out, device="cpu").dense_pairs
     monkeypatch.setattr(S, "DENSE_PAIRS_MAX", 100)
-    s = S.build_system(out)
+    s = S.build_system(out, device="cpu")
     assert not s.dense_pairs and s.lj_scale.shape == (0, 0)
-    assert s.excl_idx.shape == (S.build_system(out, dense_pairs=True)
-                                .excl_idx.shape)
+    dense = S.build_system(out, dense_pairs=True, device="cpu")
+    assert s.excl_idx.shape == dense.excl_idx.shape

@@ -104,7 +104,8 @@ def test_build_peptide_matches_jax(tmp_path):
     assert (tmp_path / "port.pdb").read_text() == \
         (tmp_path / "jax.pdb").read_text()
     # the topology resolves the terminal residues' templates from sequence
-    s = build_system(str(tmp_path / "port.pdb"), implicit="obc2")
+    s = build_system(str(tmp_path / "port.pdb"), implicit="obc2",
+                     device="cpu")
     js = jax_build_system(str(tmp_path / "jax.pdb"), implicit="obc2")
     np.testing.assert_array_equal(s.dih_idx.numpy(), np.asarray(js.dih_idx))
     np.testing.assert_allclose(s.charges.numpy(), np.asarray(js.charges),
@@ -126,7 +127,7 @@ def test_fire_matches_jax_on_alanine_obc2():
     x0 = (x0 + np.random.default_rng(3).normal(scale=0.01, size=x0.size)
           ).astype(np.float32)
     js = jax_build_system(pdb, implicit="obc2")
-    ts = build_system(pdb, implicit="obc2")
+    ts = build_system(pdb, implicit="obc2", device="cpu")
     ref = np.asarray(jax_minimize(lambda z: jax_energy(js, z),
                                   jnp.asarray(x0), maxiter=20))
     got = minimize_energy(lambda z: potential_energy_flat(ts, z),

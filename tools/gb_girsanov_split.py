@@ -84,7 +84,7 @@ def measure(root, pdbs):
     # ---- D -----------------------------------------------------------------
     for name, pdb, sizes in (("trpcage", tpdb, (1, 32, 1024)),
                              ("villin", vpdb, (1, 32))):
-        plan = GB.GBPlan(build_system(pdb, implicit="obc2"))
+        plan = GB.GBPlan(build_system(pdb, implicit="obc2", device=dev))
         x0 = torch.as_tensor(read_pdb(pdb).coords.reshape(1, -1),
                              dtype=torch.float32, device=dev)
         for b in sizes:
