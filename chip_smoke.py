@@ -6,7 +6,7 @@
 Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel) and holds each against its
 plain PyTorch version on the card.  Then it drives five paths through the
-port's entry points:
+port's entry points, and the goldens after them:
 
 - the alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline:
   randx0(100), propagate(nk=5) of 512 padded walkers x 100 LangevinMiddle
@@ -21,20 +21,21 @@ port's entry points:
 - the reference's trp-cage production loop (``tools/run_trpcage_
   production.py``): ``peptide_pdb`` builds TC5B (313 atoms) from sequence
   and minimizes it in OBC2 implicit solvent, ``MDSimulation(steps=100,
-  implicit="obc2")``, ``Iso(nx=100, nk=8)`` over 100 random-pair
-  features, 2 generations of ``run(300)`` + ``resample_strat(3)`` + the
-  2000-point cutoff, then chis/koopman/rates: the nonbonded + GBSA force
-  kernel at every MD step (randx0's 1,000 single-walker steps, 128
-  walkers x 100 steps in propagate, 32 x 100 per generation).
+  implicit="obc2")``, ``Iso(nx=5, nk=8)`` (nx cut from the reference's
+  100) over 100 random-pair features, 2 generations of ``run(300)`` +
+  ``resample_strat(3)`` + the 2000-point cutoff, then chis/koopman/rates:
+  the nonbonded + GBSA force kernel at every MD step (randx0's 500
+  single-walker steps, 64 padded walkers x 100 steps in propagate, 32 x
+  100 per generation).
 
 - the reference's explicit-solvent configuration
   (``examples/solvated_peptide.py``, full variant): ``peptide_pdb``
   builds AQGSAELAKVM and minimizes it (300 FIRE steps),
   ``MDSimulation(addwater=True, padding=1.0, steps=100)`` puts it in a
   TIP3P box (7,744 atoms, 2,526 rigid waters, reaction field under
-  minimum image), 4 walkers equilibrate for 200 steps, then randx0(8)
-  (800 single-walker steps from the equilibrated frame), propagate of
-  32 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
+  minimum image), 4 walkers equilibrate for 200 steps, then randx0(4)
+  (400 single-walker steps from the equilibrated frame), propagate of
+  16 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
   features, chis/koopman/rates: the cell-list pair-sweep kernel at every
   constrained MD step.
 
@@ -49,6 +50,17 @@ port's entry points:
   chis/koopman/rates: the force kernel at every MD step, and inside the
   bias at every biased step the pair-distance kernels (forward and
   gradient), which also featurize every new batch.
+
+- the alanine goldens (``tests/test_golden_md.py``): chi trained on the
+  committed MSM data (1,536 x 8 bursts, 800 iterations) must correlate
+  >= 0.98 with the committed eigenfunction, and fresh dynamics (384
+  committed starts x 4 walkers x 500 steps, one launch of the
+  LangevinMiddle kernel) >= 0.97;
+- the toy goldens (``tests/test_golden.py``) at their sizes: Doublewell
+  (> 0.99 against the exact eigenfunction, and its eigenvalue),
+  Triplewell with a 3-D ISA chi (both slow eigenfunctions in its span,
+  R >= 0.95), Mueller-Brown (> 0.98), then a save/load round trip of the
+  trained Doublewell learner and ``run_girsanov`` on it.
 
 It times the kernels: E whole (its ``ms``, layout and sweep, as an MD
 step pays it) and its sweep alone (``sweep_ms``), and E's layout kernel
@@ -77,7 +89,7 @@ from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
-TB, TSTEPS = 4, 40     # solvated temperature witness: walkers, steps
+TB, TSTEPS = 4, 20     # solvated temperature witness: walkers, steps
 HP35 = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"    # villin headpiece
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -133,6 +145,7 @@ def timed(fn):
 
 def main():
     watchdog()
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -140,6 +153,7 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     import isokann_tpu_torch as itt
+    from isokann_tpu_torch import goldens as G
     from isokann_tpu_torch.md.fixtures import peptide_pdb
     from isokann_tpu_torch.md import forces as F
     from isokann_tpu_torch.md.pdbio import read_pdb
@@ -303,22 +317,29 @@ def main():
             and bool(torch.isfinite(kchi).all()), "chis finite")
     require(np.all(np.diag(Q) < 0), "rates() has a negative diagonal")
 
-    # the same training on the CPU reference path, same data and params
+    # the same training on the CPU reference path, same data and params,
+    # with both optimisers: on the card the first 3 steps run eagerly and
+    # the 4th is captured as a CUDA graph that steps 4-8 replay
     sub = itt.SimulationData.from_coords(sim, data.coords[:16],
                                          data.propcoords[:16])
-    runs = []
-    for d in ("cuda", "cpu"):
-        m = itt.pairnet(nfeat).to(d)
-        m.load_state_dict(params0)
-        sd = itt.SimulationData(sim, sub.features.to(d),
-                                sub.propfeatures.to(d), sub.coords.to(d),
-                                sub.propcoords.to(d), sub.featurizer)
-        it = itt.Iso(data=sd, model=m, opt=itt.AdamRegularized(), gen=4)
-        runs.append(np.asarray(it.run(5).losses))
-    terr = float(np.max(np.abs(runs[0] - runs[1]) / np.abs(runs[1])))
-    print(f"  training on cuda vs cpu, 16 points x 5 iterations: max rel "
-          f"loss diff {terr:.2e} (tol 1e-4)")
-    require(terr < 1e-4, "cuda training agrees with the cpu path")
+    for opt in (itt.AdamRegularized(), itt.NesterovRegularized()):
+        runs, graphs = [], []
+        for d in ("cuda", "cpu"):
+            m = itt.pairnet(nfeat).to(d)
+            m.load_state_dict(params0)
+            sd = itt.SimulationData(sim, sub.features.to(d),
+                                    sub.propfeatures.to(d), sub.coords.to(d),
+                                    sub.propcoords.to(d), sub.featurizer)
+            it = itt.Iso(data=sd, model=m, opt=opt, gen=4)
+            runs.append(np.asarray(it.run(8).losses))
+            graphs.append(it._graph is not None)
+        require(graphs == [True, False],
+                "the card replays a captured step; the cpu runs eagerly")
+        terr = float(np.max(np.abs(runs[0] - runs[1]) / np.abs(runs[1])))
+        print(f"  training on cuda (CUDA-graph steps 4-8) vs cpu, "
+              f"{type(opt).__name__}, 16 points x 8 iterations: max rel "
+              f"loss diff {terr:.2e} (tol 1e-4)")
+        require(terr < 1e-4, "cuda training agrees with the cpu path")
     phase("main_path", t0, f"datagen {t_data:.3f}s train {t_train:.3f}s")
 
     # ---- 5. kernel timing --------------------------------------------------
@@ -563,13 +584,14 @@ def main():
     # tools/run_trpcage_production.py at its production widths: TC5B built
     # from sequence and minimized in OBC2 (1500 FIRE steps), a 100-step lag,
     # nk=8, 300 iterations and 3 stratified resamples a generation, cutoff
-    # 2000; the number of generations is cut to 2 and nx from 100 to 10
-    # (randx0's single-walker steps were a third of the run's time).
+    # 2000; the number of generations is cut to 2 and nx from 100 to 5
+    # (randx0's single-walker steps were a third of the run's time; 10
+    # until the goldens joined the script).
     t0 = time.perf_counter()
     GB.gb_force.launches = 0
     LK.langevin_middle.launches = 0
     GK.aboba_girsanov.launches = 0
-    GENS, ITERS, RESAMPLES, CUTOFF, TNX, TNK = 2, 300, 3, 2000, 10, 8
+    GENS, ITERS, RESAMPLES, CUTOFF, TNX, TNK = 2, 300, 3, 2000, 5, 8
     t1 = time.perf_counter()
     tsim = itt.MDSimulation(pdb=pdb, steps=100, implicit="obc2")
     tgen = itt.make_generator(30)
@@ -737,13 +759,14 @@ def main():
           f"{xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
     require(xrel < 1e-5 and vrel < 1e-4, "noiseless hybrid vs plain path")
 
-    # kinetic temperature over the last 500 of 1000 steps, B=256, the same
-    # start and the same noise stream for both paths
+    # kinetic temperature over the last 200 of 400 steps, B=256, the same
+    # start and the same noise stream for both paths (1000 steps until the
+    # goldens joined the script: cut for its time limit)
     def kinetic_temperature(step_fn):
         x, v, temps = xg, vg, []
-        for k in range(10):
+        for k in range(4):
             x, v = step_fn(x, v)
-            if k >= 5:
+            if k >= 2:
                 temps.append(float((tsim.masses3 * v * v).sum(dim=1).mean()
                                    / (tsim.dim * KB)))
         require(bool(torch.isfinite(x).all()), "finite temperature run")
@@ -758,7 +781,7 @@ def main():
         plain_force, x, v, tsim.masses3, tsim.temp, tsim.friction,
         tsim.step, 100, tsim._noise(gp, dev)))
     t_tp = time.perf_counter() - t1
-    print(f"  kinetic temperature B=256, steps 500-1000: hybrid {temp_h:.2f} "
+    print(f"  kinetic temperature B=256, steps 200-400: hybrid {temp_h:.2f} "
           f"K ({t_th:.1f}s), plain force_flat {temp_p:.2f} K ({t_tp:.1f}s), "
           f"target 310 K; |diff| {abs(temp_h - temp_p) / temp_p:.3%} (tol "
           f"1%)")
@@ -779,7 +802,7 @@ def main():
                               sim.step, NT, sim._noise(ga, dev))
     temp_a = float((m3 * va * va).sum(dim=1).mean() / (sim.dim * KB))
     print(f"  kinetic temperature at 2 fs: trp-cage vacuum NoCutoff "
-          f"{temp_n:.2f} K (B=256, 1-2 ps); alanine plain recursion "
+          f"{temp_n:.2f} K (B=256, 0.4-0.8 ps); alanine plain recursion "
           f"{temp_a:.2f} K (B={BT} after {NT} steps; kernel A {temp:.2f} K)")
     require(abs(temp_a - temp) / temp < 0.01,
             "alanine: plain recursion and kernel A at the same temperature")
@@ -838,10 +861,10 @@ def main():
     # ---- 12. solvated path --------------------------------------------------
     # examples/solvated_peptide.py's full variant at its widths: the
     # 11-residue peptide in a TIP3P box with 1 nm padding, rigid water, a
-    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 8 (16
-    # until the villin path joined the script).
+    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 4 (16
+    # until the villin path joined the script, 8 until the goldens did).
     t0 = time.perf_counter()
-    NXS, NKS, ITS, EQS, EQW = 8, 4, 200, 200, 4
+    NXS, NKS, ITS, EQS, EQW = 4, 4, 200, 200, 4
     t1 = time.perf_counter()
     ssim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100)
     ts_build = time.perf_counter() - t1
@@ -926,8 +949,8 @@ def main():
 
     # ---- 13. neighbor_sweep against plain -----------------------------------
     t0 = time.perf_counter()
-    # frames of the path: its 32 burst ends, twice, for B = 64
-    xq = sy.reshape(-1, ssim.dim).repeat(2, 1)[:64].contiguous()
+    # frames of the path: its 16 burst ends, four times, for B = 64
+    xq = sy.reshape(-1, ssim.dim).repeat(4, 1)[:64].contiguous()
     nb_err, lay_err, e_plain = 0.0, 0.0, {}
     # the layout kernel against kernel_records, bit for bit (the tile
     # boxes, and the live slots: the kernel writes no other): the path's
@@ -1417,11 +1440,119 @@ def main():
           f"{share:.2%} of the step {stamp}")
     phase("sqpairdist_timing", t0)
 
+    # ---- 18. golden_md: the alanine acceptance bar ----------------------------
+    # tests/test_golden_md.py through the port on the card: chi trained on
+    # the committed (xs, ys) against the committed MSM eigenfunction, and
+    # fresh dynamics (384 committed starts x 4 bursts of 500 steps, one
+    # launch of kernel A) re-estimating it.
+    t0 = time.perf_counter()
+    for k in (PK.sqpairdist_fwd, PK.sqpairdist_bwd, GB.gb_force,
+              LK.langevin_middle, LK.forces, GK.aboba_girsanov,
+              NBK.neighbor_sweep, NBK.neighbor_layout):
+        k.launches = 0
+    gmd = G.load_golden_md()
+    t1 = time.perf_counter()
+    md_corr, md_frac = G.md_chi_run("cuda", gmd)
+    torch.cuda.synchronize()
+    tg_chi = time.perf_counter() - t1
+    print(f"  golden_md chi: run(800) on the committed 1536 x 8 bursts, "
+          f"{tg_chi:.3f}s; corr {md_corr:.4f} (>= 0.98), frac {md_frac:.3f} "
+          f"(> 0.95) {stamp}")
+    t1 = time.perf_counter()
+    fresh = G.md_fresh_run("cuda", gmd)
+    torch.cuda.synchronize()
+    tg_fresh = time.perf_counter() - t1
+    a_golden = LK.langevin_middle.launches
+    print(f"  golden_md fresh dynamics: 384 x 4 walkers (padded to 2048) x "
+          f"500 steps + MSM, {tg_fresh:.3f}s; corr {fresh['corr']:.4f} "
+          f"(>= 0.97) on {fresh['frac']:.3f} finite (> 0.9), t_fresh "
+          f"{fresh['t_fresh']:.4g} ps > t_gold/15 = "
+          f"{fresh['t_gold'] / 15:.4g} ps; langevin_middle launches "
+          f"{a_golden} {stamp}")
+    require(md_frac > 0.95 and md_corr >= 0.98,
+            "golden_md: trained chi reproduces the MSM eigenfunction")
+    require(fresh["frac"] > 0.9 and fresh["corr"] >= 0.97
+            and fresh["t_fresh"] > fresh["t_gold"] / 15.0,
+            "golden_md: fresh dynamics reproduce the eigenfunction")
+    require(a_golden == 1, "golden_md: one launch of kernel A")
+    require(PK.sqpairdist_fwd.launches == 0 and GB.gb_force.launches == 0
+            and GK.aboba_girsanov.launches == 0 and LK.forces.launches == 0
+            and NBK.neighbor_sweep.launches == 0,
+            "golden_md runs no other kernel")
+    phase("golden_md", t0, f"chi {tg_chi:.3f}s fresh {tg_fresh:.3f}s")
+
+    # ---- 19. golden_toy: exact-eigenfunction goldens ------------------------
+    # tests/test_golden.py through the port on the card, at its sizes and
+    # iteration counts (no kernel: the toy diffusions are tensor ops).
+    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    dw_iso, dw = G.doublewell_run("cuda")
+    torch.cuda.synchronize()
+    tt_dw = time.perf_counter() - t1
+    print(f"  Doublewell nx=256 nk=64 run(2000): {tt_dw:.3f}s; corr "
+          f"{dw['corr']:.5f} (> 0.99); rate {dw['rate']:.4f} vs exact "
+          f"{dw['exact_rate']:.4f} (15%); chi_exit_rate "
+          f"{dw['exit_rate']:.4g} {stamp}")
+    require(abs(dw["vals"][0] - 1.0) < 1e-6 and 0.0 < dw["vals"][1] < 1.0,
+            "Doublewell golden spectrum")
+    require(dw["corr"] > 0.99, "Doublewell chi matches the eigenfunction")
+    require(abs(dw["rate"] - dw["exact_rate"]) <= 0.15 * dw["exact_rate"],
+            "Doublewell rate matches the exact eigenvalue")
+    require(np.isfinite(dw["exit_rate"]) and dw["exit_rate"] > 0,
+            "Doublewell chi_exit_rate finite and positive")
+    t1 = time.perf_counter()
+    tw = G.triplewell_run("cuda")
+    torch.cuda.synchronize()
+    tt_tw = time.perf_counter() - t1
+    print(f"  Triplewell ISA nx=1024 nk=64 nout=3 run(1500): {tt_tw:.3f}s; "
+          f"R(psi_2) {tw['R2']:.4f}, R(psi_3) {tw['R3']:.4f} (>= 0.95); row "
+          f"sums {tw['rowsum_mean']:.4f} +- {tw['rowsum_std']:.4f}; wells on "
+          f"columns {tw['wells']} {stamp}")
+    require(tw["R2"] >= 0.95 and tw["R3"] >= 0.95,
+            "Triplewell chi contains psi_2 and psi_3")
+    require(abs(tw["rowsum_mean"] - 1.0) <= 0.05 and tw["rowsum_std"] < 0.1,
+            "Triplewell chi rows sum to 1")
+    require(sorted(tw["wells"]) == [0, 1, 2],
+            "Triplewell wells on distinct columns")
+    t1 = time.perf_counter()
+    mb = G.mueller_brown_run("cuda")
+    torch.cuda.synchronize()
+    tt_mb = time.perf_counter() - t1
+    print(f"  Mueller-Brown nx=512 nk=32 run(3000): {tt_mb:.3f}s; corr "
+          f"{mb:.5f} (> 0.98) {stamp}")
+    require(mb > 0.98, "Mueller-Brown chi matches the eigenfunction")
+    t1 = time.perf_counter()
+    snap = os.path.join(ROOT, "build", "chip_smoke", "doublewell.pt")
+    dw_iso.save(snap)
+    dw2 = itt.load(snap)
+    same = torch.equal(dw2.chis(), dw_iso.chis())
+    dw2.run(5)
+    require(same and dw2.model.layers[0].weight.is_cuda,
+            "save/load: the same chis on the card, bit for bit")
+    require(len(dw2.losses) == len(dw_iso.losses) + 5
+            and np.all(np.isfinite(dw2.losses)), "save/load: run(5) goes on")
+    itt.run_girsanov(dw_iso, generations=2, iter=10, kde=4, forcescale=0.5)
+    torch.cuda.synchronize()
+    tt_sg = time.perf_counter() - t1
+    grows = dw_iso.girsanov_telemetry
+    gw = dw_iso.data.propfeatures.weights[-8:].double().cpu().numpy().ravel()
+    gse = gw.std() / np.sqrt(len(gw))
+    print(f"  save/load + run(5) + run_girsanov(2, iter=10, kde=4, "
+          f"forcescale=0.5): {tt_sg:.3f}s; biased {[r['biased'] for r in grows]}"
+          f", ess {[round(r['ess'] or 0, 2) for r in grows]}; new weights "
+          f"mean {gw.mean():.4f} +- {gse:.4f} {stamp}")
+    require(all(r["biased"] for r in grows), "Doublewell Girsanov biased")
+    require(np.all(np.isfinite(gw)) and abs(gw.mean() - 1.0) < 4 * gse,
+            "Doublewell Girsanov weights finite, E[w] = 1")
+    phase("golden_toy", t0, f"doublewell {tt_dw:.3f}s triplewell "
+                            f"{tt_tw:.3f}s mueller_brown {tt_mb:.3f}s "
+                            f"save/load + girsanov {tt_sg:.3f}s")
+
     kernels = [{
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
-        "launches": launches, "max_abs_err": lm_err, "ms": ms,
+        "launches": launches + a_golden, "max_abs_err": lm_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
         "library_ms": None,
     }, {
@@ -1470,6 +1601,8 @@ def main():
         "plain_ms": cb_plain[32], "bound_ms": PK.bound_ms("bwd", 32, nv)[0],
         "bound_by": PK.bound_ms("bwd", 32, nv)[1], "library_ms": None,
     }]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the start "
+          f"of main, of the watchdog's {LIMIT_S} s {stamp}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -20,21 +20,33 @@ from .data import SimulationData, WeightedSamples  # noqa: E402
 from .features import (FeaturesAll, FeaturesAngles,  # noqa: E402
                        FeaturesAtoms, FeaturesCoords, FeaturesPairs,
                        FeaturesRandomPairs)
-from .iso import Iso  # noqa: E402
+from .iso import (FunctionLogger, Iso, ValidationLogger,  # noqa: E402
+                  ValidationLossLogger, load, save, validationloss)
 from .md.integrators import optcontrol  # noqa: E402
-from .models import MLP, autonet, pairnet  # noqa: E402
+from .models import MLP, autonet, growmodel, pairnet  # noqa: E402
 from .optim import AdamRegularized, NesterovRegularized  # noqa: E402
+from .simulators.langevin import (Diffusion, Doublewell,  # noqa: E402
+                                  MuellerBrown, Triplewell)
 from .simulators.mdsim import MDSimulation  # noqa: E402
-from .targets import (DomainError, TransformShiftscale,  # noqa: E402
-                      expectation, shiftscale)
+from .targets import (DomainError, Stabilize, TransformCross,  # noqa: E402
+                      TransformGramSchmidt, TransformISA,
+                      TransformLeftRight, TransformLeftRightHistory,
+                      TransformPinv, TransformPseudoInv, TransformShiftscale,
+                      TransformSVD, TransformSVDRev, expectation, isotarget,
+                      shiftscale)
 from .workflows import run_girsanov  # noqa: E402
 
 __all__ = [
-    "AdamRegularized", "DomainError", "FeaturesAll", "FeaturesAngles",
-    "FeaturesAtoms", "FeaturesCoords", "FeaturesPairs",
-    "FeaturesRandomPairs", "Iso", "MDSimulation",
-    "MLP", "NesterovRegularized", "SimulationData",
-    "TransformShiftscale", "WeightedSamples", "autonet", "expectation",
+    "AdamRegularized", "Diffusion", "DomainError", "Doublewell",
+    "FeaturesAll", "FeaturesAngles", "FeaturesAtoms", "FeaturesCoords",
+    "FeaturesPairs", "FeaturesRandomPairs", "FunctionLogger", "Iso",
+    "MDSimulation", "MLP", "MuellerBrown", "NesterovRegularized",
+    "SimulationData", "Stabilize", "TransformCross", "TransformGramSchmidt",
+    "TransformISA", "TransformLeftRight", "TransformLeftRightHistory",
+    "TransformPinv", "TransformPseudoInv", "TransformSVD",
+    "TransformSVDRev", "TransformShiftscale", "Triplewell",
+    "ValidationLogger", "ValidationLossLogger", "WeightedSamples",
+    "autonet", "expectation", "growmodel", "isotarget", "load",
     "make_generator", "optcontrol", "pairnet", "resolve_device",
-    "run_girsanov", "shiftscale",
+    "run_girsanov", "save", "shiftscale", "validationloss",
 ]

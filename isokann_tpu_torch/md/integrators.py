@@ -2,7 +2,9 @@
 
 Counterpart of ``isokann_tpu/md/integrators.py``: ``maxwell_boltzmann``,
 the OpenMM LangevinMiddle scheme, the Girsanov-weighted ABOBA scheme
-(``aboba_girsanov``) over any force and bias function, and the
+(``aboba_girsanov``) over any force and bias function, overdamped
+Euler-Maruyama (``brownian``) and its Girsanov-weighted form
+(``brownian_girsanov``, the toy diffusions' biased bursts), and the
 chi-derived optimal-control bias (``optcontrol``).  Small vacuum systems
 integrate in the hand-written kernels of ``langevin_kernel.py`` and
 ``girsanov_kernel.py``; larger ones run these recursions over a kernel's
@@ -11,8 +13,8 @@ forces, with rigid-water constraints where the system has them
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
 explicit ``torch.Generator``: LangevinMiddle draws on the generator's
-device and moves the noise to the walkers', ABOBA draws on the walkers'
-device (a CUDA generator for walkers on the card).
+device and moves the noise to the walkers', ABOBA and Euler-Maruyama
+draw on the walkers' device (a CUDA generator for walkers on the card).
 """
 
 from __future__ import annotations
@@ -110,6 +112,56 @@ def constants(masses3, T, gamma, overdamped: bool):
     if overdamped:
         return torch.sqrt(2 * KB * T / (gamma * masses3))
     return torch.sqrt(2 * KB * T * gamma * masses3)
+
+
+def _brownian_noise(gen, x):
+    return (torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                        device=x.device)
+            if gen is not None else torch.zeros_like(x))
+
+
+def brownian(force_fn: Callable, x0, masses3, T, gamma, dt, nsteps: int,
+             gen: Optional[torch.Generator] = None):
+    """Overdamped Euler-Maruyama: x += F/(gamma m) dt + sigma sqrt(dt) R
+    with sigma = sqrt(2 kB T / (gamma m)).  R is drawn from ``gen`` on the
+    walkers' device; ``gen=None`` runs the noiseless recursion."""
+    sig = constants(masses3, T, gamma, overdamped=True)
+    sqdt = math.sqrt(dt)
+    x = x0
+    for _ in range(int(nsteps)):
+        f = force_fn(x)
+        x = x + f / (gamma * masses3) * dt + sig * sqdt * _brownian_noise(
+            gen, x)
+    return x
+
+
+def brownian_girsanov(force_fn: Callable, bias_fn: Callable, x0, masses3,
+                      T, gamma, dt, nsteps: int,
+                      gen: Optional[torch.Generator] = None,
+                      sigmascaled=True):
+    """Overdamped Euler-Maruyama under a bias u, with Girsanov weights:
+
+        dX = [F/(gamma m) + sigma u] dt + sigma dB
+        dlogw = -(|u|^2 / 2 dt + u . dB)
+
+    u = bias(x, t, sigma, F) (divided by sigma unless ``sigmascaled``).
+    Returns (x, logw), logw per walker."""
+    sig = constants(masses3, T, gamma, overdamped=True)
+    sqdt = math.sqrt(dt)
+    x = x0
+    logw = torch.zeros(x0.shape[:-1], dtype=x0.dtype, device=x0.device)
+    t = 0.0
+    for _ in range(int(nsteps)):
+        f = force_fn(x)
+        u = bias_fn(x, t=t, sigma=sig, F=f)
+        if not sigmascaled:
+            u = u / sig
+        db = _brownian_noise(gen, x) * sqdt
+        x = x + (f / (gamma * masses3) + sig * u) * dt + sig * db
+        logw = logw - (torch.sum(u * u, dim=-1) / 2 * dt
+                       + torch.sum(u * db, dim=-1))
+        t += dt
+    return x, logw
 
 
 def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,

@@ -104,3 +104,19 @@ def autonet(n: int, nout: int = 1, gen=None, device=None, **kwargs) -> MLP:
     if n < 16:
         return smallnet(n, nout=nout, gen=gen, device=device)
     return pairnet(n=n, nout=nout, gen=gen, device=device, **kwargs)
+
+
+def growmodel(model: MLP, n: int, gen=None) -> MLP:
+    """A copy of ``model`` with ``n`` outputs: every layer but the last
+    and the LayerNorm keep their trained weights; the last layer is drawn
+    anew (Glorot-uniform from ``gen``, zero bias)."""
+    device = model.layers[0].weight.device
+    new = MLP(model.sizes[:-1] + (n,), model.activation,
+              model.lastactivation, model.layernorm, gen=gen, device=device)
+    with torch.no_grad():
+        for src, dst in zip(model.layers[:-1], new.layers[:-1]):
+            dst.weight.copy_(src.weight)
+            dst.bias.copy_(src.bias)
+        if model.ln is not None:
+            new.ln.load_state_dict(model.ln.state_dict())
+    return new

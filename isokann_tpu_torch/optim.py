@@ -19,7 +19,10 @@ class AdamRegularized:
     reg: float = 1e-4
 
     def __call__(self, params) -> torch.optim.Optimizer:
-        return torch.optim.Adam(params, lr=self.adam, weight_decay=self.reg)
+        # capturable on the card: ``Iso`` captures its steps in a CUDA graph
+        params = list(params)
+        return torch.optim.Adam(params, lr=self.adam, weight_decay=self.reg,
+                                capturable=any(p.is_cuda for p in params))
 
 
 @dataclass(frozen=True)

@@ -31,5 +31,13 @@ class IsoSimulation:
         return autonet(n if n is not None else self.dim, nout=nout, gen=gen,
                        **kwargs)
 
+    def __getstate__(self):
+        """Pickled without its bias: a bias closure does not pickle, and
+        ``run_girsanov`` makes a new one each generation."""
+        d = self.__dict__.copy()
+        if "bias" in d:
+            d["bias"] = None
+        return d
+
     def __repr__(self):
         return f"{type(self).__name__} with {self.dim} dimensions"

@@ -61,7 +61,8 @@ def test_port_imports_no_jax():
         "md.neighbor", "md.neighbor_kernel", "md.solvate",
         "md.constraints", "ops.pairdists", "ops.pairdists_kernel",
         "ops.dihedrals", "features", "sample", "data", "iso",
-        "simulators.mdsim")} <= walked, out.stdout
+        "simulators.mdsim", "simulators.langevin", "targets", "models",
+        "analysis.msm", "goldens", "workflows")} <= walked, out.stdout
 
 
 def test_propagate_and_randx0_shapes():
