@@ -1,8 +1,8 @@
 """SimulationData, Girsanov-weighted samples and capacity-bucket padding;
 counterpart of ``isokann_tpu/data.py`` (``WeightedSamples``, ``lastcat``,
-``SimulationData`` with its merging, chi-stratified and KDE resampling,
-``subsample_inds``) and of the ``bucket_capacity``/``_pad_rows`` helpers
-of ``isokann_tpu/iso.py``.
+``bootstrap``, ``SimulationData`` with its bootstrap, merging,
+chi-stratified and KDE resampling, ``subsample_inds``) and of the
+``bucket_capacity``/``_pad_rows`` helpers of ``isokann_tpu/iso.py``.
 
 Arrays are batch-leading tensors on the simulation's device:
 xs (n, d), ys (n, k, d), features (n, f) and (n, k, f); ys and their
@@ -103,6 +103,14 @@ def pad_rows(a, cap: int):
     return torch.cat([a] + [a] * reps, dim=0)[:cap]
 
 
+def bootstrap(sim, nx, ny, gen=None):
+    """Initial data by propagating the sim's start state: nx start points
+    from ``sim.randx0`` and ny bursts from each, ``(xs, ys)``."""
+    gen = make_generator(gen)
+    xs = sim.randx0(nx, gen=gen)
+    return xs, sim.propagate(xs, ny, gen=gen)
+
+
 def subsample_inds(model, xs, n, keepedges=True, seed=None):
     """Indices such that ``model(xs[inds])`` is approximately uniform, per
     chi dimension; a (near-)constant chi falls back to uniform random
@@ -140,10 +148,19 @@ class SimulationData:
     @classmethod
     def from_sim(cls, sim, nx: int = None, nk: int = None, xs=None,
                  featurizer=None, gen=None):
-        """nx start points from ``sim.randx0`` (unless ``xs`` is given),
-        then nk Koopman bursts from each."""
+        """nx start points and nk Koopman bursts from each: for a
+        simulation with ``bootstrap_data`` and no bias, its multi-chain
+        bootstrap, as the reference takes it; else ``sim.randx0`` (unless
+        ``xs`` is given) and ``sim.propagate``."""
         gen = make_generator(gen)
         if xs is None:
+            if (hasattr(sim, "bootstrap_data")
+                    and getattr(sim, "bias", None) is None):
+                feat = (featurizer or getattr(sim, "featurizer", None)
+                        or identity)
+                xs, ys, fxs, fys = sim.bootstrap_data(nx, nk, featurizer=feat,
+                                                      gen=gen)
+                return cls(sim, fxs, fys, xs, ys, feat)
             xs = sim.randx0(nx, gen=gen)
         ys = sim.propagate(xs, nk, gen=gen)
         return cls.from_coords(sim, xs, ys, featurizer=featurizer)

@@ -259,6 +259,18 @@ class Iso:
         return chi_exit_rate(x.cpu().numpy(), Kx.cpu().numpy(),
                              self.data.sim.lagtime)
 
+    def lag_sweep(self, **kwargs):
+        """Candidate lags' fitted Koopman spectra and implied timescales;
+        see ``workflows.lag_sweep``."""
+        from .workflows import lag_sweep
+        return lag_sweep(self, **kwargs)
+
+    def cktest(self, **kwargs):
+        """Chapman-Kolmogorov validation K(tau)^k = K(k tau) of the
+        chi-coarse Koopman model; see ``workflows.cktest``."""
+        from .workflows import cktest
+        return cktest(self, **kwargs)
+
     def koopman_variance(self):
         """Variance of chi over the Koopman samples, summed over the chi
         dimensions and divided by d n."""

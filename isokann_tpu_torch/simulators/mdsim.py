@@ -54,6 +54,14 @@ On the CPU the plain recursion runs with the bias callable on every
 unconstrained route.  A constrained system raises on every device.  As
 in the reference, biased walkers that diverge are not retried.
 
+``bootstrap_data`` (the reference's dataset bootstrap, which
+``SimulationData.from_sim`` takes for an unbiased simulation) runs
+``chains`` lagged chains from the default state as one batch of walkers
+through the route above, drops a burn-in and returns the frames
+chain-major; the reference's split into a fused and a staged program
+(its v5e program limits) has no counterpart: one path with the same
+semantics.
+
 Generic bond constraints (HBonds), virtual sites (TIP4P), Ewald, a biased
 ``trajectory`` and the Brownian integrator are not ported.
 """
@@ -232,6 +240,20 @@ class MDSimulation(IsoSimulation):
     def random_velocities(self, gen, shape):
         return I.maxwell_boltzmann(gen, self.masses3, self.temp, shape)
 
+    def potential(self, x):
+        """Potential energy [kJ/mol] at flat coords (batched)."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return F.potential_energy_flat(self.system, x)
+
+    def minimize(self, x=None, maxiter=500):
+        """FIRE energy minimization of ``x`` (default: the start state)."""
+        from ..md.minimize import minimize_energy
+        x = self._x0 if x is None else torch.as_tensor(
+            x, dtype=torch.float32, device=self.device)
+        return minimize_energy(
+            lambda z: F.potential_energy_flat(self.system, z), x,
+            maxiter=maxiter)
+
     # ---- propagation -------------------------------------------------------
 
     def _check_route(self, device):
@@ -362,6 +384,25 @@ class MDSimulation(IsoSimulation):
         self._check_cell_overflow(ys)
         return ys.reshape(n, nk, d)
 
+    def _lagged_frames(self, x, v, nframes, steps, resample_velocities,
+                       gen):
+        """Frames of the (B, 3N) walkers ``x`` taken ``steps`` integrator
+        steps apart, velocities drawn from Maxwell-Boltzmann at the start
+        of each lag where asked: (k, B, 3N) for the first k <= nframes lags
+        at which every walker is finite.  The cell occupancy of every kept
+        frame is checked (``_check_cell_overflow``)."""
+        frames = []
+        for _ in range(nframes):
+            if resample_velocities:
+                v = self.random_velocities(gen, x.shape)
+            x, v = self._integrate(x, v, steps, gen)
+            if not bool(torch.isfinite(x).all()):
+                break
+            frames.append(x)
+        out = torch.stack(frames) if frames else x.new_empty((0,) + x.shape)
+        self._check_cell_overflow(out, sample=out.shape[0] * out.shape[1])
+        return out
+
     def trajectory(self, steps=None, saveevery=1, x0=None,
                    sample_velocities=True, resample_velocities=False,
                    gen=None):
@@ -374,23 +415,18 @@ class MDSimulation(IsoSimulation):
         steps = self.steps if steps is None else int(steps)
         x = (self._x0 if x0 is None else torch.as_tensor(
             x0, dtype=torch.float32, device=self.device)).reshape(1, -1)
-        v = (self.random_velocities(gen, x.shape) if sample_velocities
+        v = (self.random_velocities(gen, x.shape)
+             if sample_velocities and not resample_velocities
              else torch.zeros_like(x))
-        saves = []
-        for _ in range(steps // saveevery):
-            if resample_velocities:
-                v = self.random_velocities(gen, x.shape)
-            x, v = self._integrate(x, v, saveevery, gen)
-            if not bool(torch.isfinite(x).all()):
-                warnings.warn(f"trajectory diverged after {len(saves)} "
-                              f"frames; returning partial result")
-                break
-            saves.append(x[0])
-        if not saves:
+        nsave = steps // saveevery
+        out = self._lagged_frames(x, v, nsave, saveevery,
+                                  resample_velocities, gen)[:, 0]
+        if len(out) < nsave:
+            warnings.warn(f"trajectory diverged after {len(out)} "
+                          f"frames; returning partial result")
+        if not len(out):
             raise FloatingPointError("trajectory diverged immediately; "
                                      "reduce the timestep")
-        out = torch.stack(saves)
-        self._check_cell_overflow(out, sample=len(saves))
         return out
 
     def _check_cell_overflow(self, ys, sample: int = 8):
@@ -430,6 +466,62 @@ class MDSimulation(IsoSimulation):
     def randx0(self, n, gen=None):
         """n start points from a lagged trajectory of the default state."""
         return self.laggedtrajectory(n, gen=gen)
+
+    # ---- dataset bootstrap -------------------------------------------------
+
+    @staticmethod
+    def bootstrap_chains(nx: int, chains=None, burnin=None):
+        """``(chains, burnin)`` of ``bootstrap_data`` for ``nx`` frames:
+        by default the largest divisor of nx up to 8 that leaves each
+        chain at least 4 lags, and ``nlag * (chains - 1) // 2`` burn-in
+        lags (the mean depth of one chain of nx lags)."""
+        if chains is None:
+            chains = max((d for d in range(1, 9)
+                          if nx % d == 0 and nx // d >= 4), default=1)
+        if nx % chains != 0:
+            raise ValueError(f"chains={chains} must divide nx={nx}")
+        if burnin is None:
+            burnin = (nx // chains) * (chains - 1) // 2
+        return chains, burnin
+
+    def bootstrap_data(self, nx: int, nk: int, featurizer=None, gen=None,
+                       chains=None, burnin=None):
+        """The reference's dataset bootstrap: nx lagged frames from
+        ``chains`` independent chains of the default state, nk Koopman
+        bursts from each and the features of both; ``(xs, ys, fxs,
+        fys)``.
+
+        The chains run as one batch of ``chains`` walkers through the
+        system's route (``_integrate``), ``nx // chains + burnin`` lags
+        each, velocities drawn from Maxwell-Boltzmann at the start of
+        every lag, in the lag loop of ``trajectory`` (so every frame's
+        cell occupancy is checked); the first ``burnin`` frames of each
+        chain are dropped and the rest stacked chain-major, (nx, 3N).
+        ``chains=1`` (burn-in 0) is ``laggedtrajectory(nx)``.  The bursts go through
+        ``propagate`` with the bias off (padded, diverged walkers
+        retried)."""
+        gen = make_generator(gen)
+        featurizer = featurizer or self.featurizer
+        chains, burnin = self.bootstrap_chains(nx, chains, burnin)
+        nlag = nx // chains
+        x = self._x0[None, :].repeat(chains, 1)
+        frames = self._lagged_frames(x, torch.zeros_like(x), nlag + burnin,
+                                     self.steps, True, gen)
+        if len(frames) < nlag + burnin:
+            raise FloatingPointError(
+                "dataset bootstrap diverged (non-finite coordinates): the "
+                "initial structure appears unstable at this timestep — "
+                "construct the simulation with minimize=True or a smaller "
+                "`step`")
+        xs = frames[burnin:].transpose(0, 1).reshape(nx, self.dim)
+        bias, self.bias = self.bias, None
+        try:
+            ys = self.propagate(xs, nk, gen=gen)
+        finally:
+            self.bias = bias
+        fxs = featurizer(xs).to(torch.float32)
+        fys = featurizer(ys).to(torch.float32)
+        return xs, ys, fxs, fys
 
     def __repr__(self):
         return (f"MDSimulation({self.natoms} atoms, steps={self.steps}, "
