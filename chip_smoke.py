@@ -16,6 +16,13 @@ port's entry points, and the goldens after them:
   AdamRegularized, then chis/koopman/rates): the LangevinMiddle kernel;
   then the lag tools on its chi (``lag_sweep`` and ``rates_resolved`` at
   50/100/200 steps, ``cktest`` at factor 2; one launch a propagation);
+  then, on a copy of that learner, the adaptive loop's growth:
+  ``addcoords(20)`` (a lagged trajectory from the last point),
+  ``picking_aligned`` of 10 burst ends by aligned RMSD, ``run_kde_dash``
+  (3 generations), 4 KDE needles in chi, ``addextrapolates`` (with and
+  without the levelset minimization) and ``exportsorted`` read back:
+  the data grows by exactly what each step adds, kernel A launches once
+  a lag and once a propagation;
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
@@ -62,7 +69,9 @@ port's entry points, and the goldens after them:
   committed MSM data (1,536 x 8 bursts, 800 iterations) must correlate
   >= 0.98 with the committed eigenfunction, and fresh dynamics (384
   committed starts x 4 walkers x 500 steps, one launch of the
-  LangevinMiddle kernel) >= 0.97;
+  LangevinMiddle kernel) >= 0.97; chi trained on the committed solvated
+  features (768 x 4 bursts, ``ExternalSimulation`` data, 600 iterations)
+  >= 0.95 with its eigenfunction;
 - the toy goldens (``tests/test_golden.py``) at their sizes: Doublewell
   (> 0.99 against the exact eigenfunction, and its eigenvalue),
   Triplewell with a 3-D ISA chi (both slow eigenfunctions in its span,
@@ -86,11 +95,14 @@ against the plain version, times, bound) and ``{"ok": true, "device":
 JAX.
 """
 
+import copy
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
+import warnings
 import time
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
@@ -161,10 +173,11 @@ def main():
     sys.path.insert(0, ROOT)
     import isokann_tpu_torch as itt
     from isokann_tpu_torch import goldens as G
+    from isokann_tpu_torch import sample as S
     from isokann_tpu_torch import workflows as W
     from isokann_tpu_torch.md.fixtures import peptide_pdb
     from isokann_tpu_torch.md import forces as F
-    from isokann_tpu_torch.md.pdbio import read_pdb
+    from isokann_tpu_torch.md.pdbio import read_pdb, read_pdb_traj
     from isokann_tpu_torch.models import densenet
     from isokann_tpu_torch.md.system import build_system
     from isokann_tpu_torch.md import gb_kernel as GB
@@ -250,12 +263,15 @@ def main():
         device=dev)).contiguous()
     gen = itt.make_generator(1)
     v0 = sim.random_velocities(gen, x.shape)
-    # the main path launches the kernel at B=5 (the quickstart's bootstrap
-    # chains) and B=512 (propagate); B=1 is a lone walker and B=37 also
-    # covers a partly filled last block
+    # the quickstart launches the kernel at B=5 (its bootstrap chains) and
+    # B=512 (propagate, and lag_tools' propagations); the adaptive phase at
+    # B=1 (addcoords(20)'s lags), 128 (its 100 bursts), 64 (50 bursts of
+    # the aligned picks) and 32 (20 bursts of each KDE generation, of the
+    # KDE needles and of the extrapolated points); B=37 also covers a
+    # partly filled last block
     chains_qs = sim.bootstrap_chains(100)[0]
     ferr = lm_err = 0.0
-    for b in (B, 37, chains_qs, 1):
+    for b in (B, 128, 64, 37, 32, chains_qs, 1):
         xb, vb = x[:b].contiguous(), v0[:b].contiguous()
         f_k = LK.forces(plan, xb)
         f_p = LK.forces_plain(plan, xb)
@@ -463,6 +479,137 @@ def main():
     phase("lag_tools", t0, f"lag_sweep {tl['lag_sweep']:.3f}s rates_resolved "
                            f"{tl['rates_resolved']:.3f}s cktest "
                            f"{tl['cktest']:.3f}s")
+
+    # ---- 5c. adaptive: the adaptive loop's data, picks and extrapolation ----
+    # On a copy of the quickstart's trained learner (its weights, optimiser
+    # state, losses and data; the later phases keep the original), the
+    # reference's ways to grow the data where chi's coverage is poor, each
+    # through propagate (kernel A; 5 bursts a point, padded to a power of
+    # two): addcoords(20) (20 lags at B=1 from the last point, then 100
+    # bursts at B=128), 10 picks by aligned RMSD from the bursts' ends (50
+    # at B=64), run_kde_dash(3 generations of kde 4 + run(20); 20 at B=32
+    # each), 4 KDE needles in chi (20 at B=32) and extrapolation beyond
+    # chi's extrema, then the chi-sorted export.  extrapolate's default
+    # levelset minimization (fixed-step gradient descent at lr 1e-5)
+    # diverges on thermal alanine frames in both packages and keeps no
+    # point (tests/test_torch_sample.py), so minimize=False runs after it.
+    t0 = time.perf_counter()
+    LK.langevin_middle.launches = 0
+    aiso = itt.Iso(data=iso.data, model=copy.deepcopy(iso.model),
+                   opt=iso.opt, minibatch=iso.minibatch, gen=30)
+    aiso.optimizer.load_state_dict(copy.deepcopy(
+        iso.optimizer.state_dict()))
+    aiso.losses = list(iso.losses)
+    r0 = sim.retries
+    ta, grew, want_ad = {}, {}, 0
+
+    def grow(name, fn, launches):
+        """``fn()`` timed, with the data's growth and the launches of
+        kernel A it should take (before retries)."""
+        nonlocal want_ad
+        n0 = len(aiso.data)
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ta[name] = time.perf_counter() - t1
+        grew[name] = len(aiso.data) - n0
+        want_ad += launches(grew[name]) if callable(launches) else launches
+        return out
+
+    grow("addcoords(20)", lambda: aiso.addcoords(20), 20 + 1)
+    pool = itt.flattenfirst(aiso.data.propcoords)
+
+    def pick_aligned():
+        picked, qs, _ = S.picking_aligned(pool, 10)
+        aiso.addcoords(picked)
+        return qs
+
+    qs = grow("picking_aligned + addcoords", pick_aligned, 1)
+    grow("run_kde_dash", lambda: W.run_kde_dash(aiso, generations=3,
+                                                iter=20, kde=4), 3)
+
+    def needles():
+        with torch.no_grad():
+            chix = aiso.chis()[:, 0].cpu().numpy()
+            chiy = aiso.model(itt.flattenfirst(aiso.data.propfeatures))
+        iy = S.resample_kde_needles(chix, chiy[:, 0].cpu().numpy(), 4)
+        ends = itt.flattenfirst(aiso.data.propcoords)
+        aiso.addcoords(ends[torch.as_tensor(iy, device=dev)])
+        return iy
+
+    iy = grow("kde_needles + addcoords", needles, 1)
+    for minimize in (True, False):
+        with torch.no_grad():
+            ends = itt.flattenfirst(aiso.data.propcoords)
+            chi_ends = aiso.model(
+                itt.flattenfirst(aiso.data.propfeatures))[:, 0]
+        name = f"addextrapolates(minimize={minimize})"
+        n0 = len(aiso.data)
+        grow(name, lambda: S.addextrapolates(aiso, 2, stepsize=0.01,
+                                             minimize=minimize),
+             lambda g: int(g > 0))
+        new = aiso.data.coords[n0:]
+        require(grew[name] <= 4 and bool(torch.isfinite(new).all()),
+                f"{name}: at most 4 finite points")
+        # each point's start: the burst end it lies nearest to; pushed
+        # down (chi lower) from the lower half of chi, up from the upper
+        start = torch.cdist(new, ends).argmin(dim=1)
+        chi_new = aiso.chicoords(new)[:, 0]
+        up = chi_ends[start] > chi_ends.median()
+        moved = torch.where(up, chi_new - chi_ends[start],
+                            chi_ends[start] - chi_new)
+        print(f"  {name}: {grew[name]} points, chi {chi_ends[start].tolist()}"
+              f" -> {chi_new.tolist()}")
+        require(bool((moved > 0).all()), f"{name}: chi moved the way each "
+                                         f"point was pushed")
+    require(grew["addextrapolates(minimize=False)"] == 4,
+            "extrapolate without minimization keeps 2 n points")
+    with tempfile.TemporaryDirectory() as out_dir:
+        spath = os.path.join(out_dir, "sorted.pdb")
+        for name in ("exportsorted", "exportsorted again"):
+            t1 = time.perf_counter()
+            itt.exportsorted(aiso, spath)
+            ta[name] = time.perf_counter() - t1
+        back = torch.as_tensor(read_pdb_traj(spath), dtype=torch.float32,
+                               device=dev)
+    order = torch.as_tensor(np.argsort(aiso.chis()[:, 0].cpu().numpy()),
+                            device=dev)
+    raw = aiso.data.coords[order]
+    nat = sim.natoms
+    exp_err = float(itt.aligned_rmsd(back.reshape(-1, nat, 3),
+                                     raw.reshape(-1, nat, 3),
+                                     flat=False).max())
+    at_ms = cuda_ms(lambda: itt.aligntrajectory(raw), reps=5)
+    pk_ms = cuda_ms(lambda: S.picking_aligned(pool, 10))
+    with warnings.catch_warnings(record=True) as rw:
+        warnings.simplefilter("always")
+        Qa = aiso.rates()
+    a_adapt = LK.langevin_middle.launches
+    want_ad += sim.retries - r0
+    print(f"  adaptive: data {len(iso.data)} -> {len(aiso.data)} "
+          f"({grew}); picks {qs.tolist()}; needles {iy.tolist()}; seconds "
+          f"{ {k: round(v, 3) for k, v in ta.items()} }; picking_aligned "
+          f"of 10 from {len(pool)} {pk_ms:.2f} ms warm; aligntrajectory "
+          f"T={len(raw)} {at_ms:.3f} ms warm (CUDA events); export "
+          f"{back.shape[0]} frames, max aligned RMSD to the chi-sorted "
+          f"coordinates {exp_err:.2e} nm (tol 1e-4); langevin_middle "
+          f"launches {a_adapt} (expected {want_ad}, retries "
+          f"{sim.retries - r0}); loss {aiso.losses[-1]:.4f}; rates diag "
+          f"{np.diag(Qa).tolist()}{' (clamped)' if rw else ''} {stamp}")
+    require(grew["addcoords(20)"] == 20
+            and grew["picking_aligned + addcoords"] == 10
+            and grew["run_kde_dash"] == 12
+            and grew["kde_needles + addcoords"] == 4,
+            "the data grows by the points each step adds")
+    require(len(set(qs.tolist())) == 10 and len(set(iy.tolist())) == 4,
+            "distinct picks")
+    require(a_adapt == want_ad, "kernel A launched once a lag and once a "
+                                "propagation")
+    require(back.shape[0] == len(aiso.data) and exp_err < 1e-4,
+            "exportsorted: every start point, chi-sorted, within 1e-4 nm")
+    require(np.all(np.isfinite(aiso.losses)), "adaptive losses finite")
+    require(np.all(np.diag(Qa) < 0), "rates() has a negative diagonal")
+    phase("adaptive", t0, " ".join(f"{k} {v:.3f}s" for k, v in ta.items()))
 
     # ---- 6. Girsanov kernel against plain -----------------------------------
     t0 = time.perf_counter()
@@ -1700,6 +1847,29 @@ def main():
             "golden_md runs no other kernel")
     phase("golden_md", t0, f"chi {tg_chi:.3f}s fresh {tg_fresh:.3f}s")
 
+    # ---- 18b. golden_solvated: the explicit-solvent acceptance bar ---------
+    # tests/test_golden_md.py's solvated anchor through the port on the
+    # card: chi trained on the committed float16 features of alanine in
+    # water (768 x 4 bursts, 231 distances) as ExternalSimulation data,
+    # pairnet(231), AdamRegularized, minibatch 256, run(600).  No kernel.
+    t0 = time.perf_counter()
+    k_before = {k: k.launches for k in (
+        PK.sqpairdist_fwd, PK.sqpairdist_bwd, GB.gb_force,
+        LK.langevin_middle, LK.forces, GK.aboba_girsanov,
+        NBK.neighbor_sweep, NBK.neighbor_layout)}
+    t1 = time.perf_counter()
+    sv_corr, sv_frac = G.solvated_chi_run("cuda")
+    torch.cuda.synchronize()
+    tg_solv = time.perf_counter() - t1
+    print(f"  golden_solvated chi: run(600) on the committed 768 x 4 "
+          f"solvated features, {tg_solv:.3f}s; corr {sv_corr:.4f} (>= 0.95),"
+          f" frac {sv_frac:.3f} (> 0.9) {stamp}")
+    require(sv_frac > 0.9 and sv_corr >= 0.95,
+            "golden_solvated: chi reproduces the solvated eigenfunction")
+    require(all(k.launches == n for k, n in k_before.items()),
+            "golden_solvated runs no kernel")
+    phase("golden_solvated", t0, f"chi {tg_solv:.3f}s")
+
     # ---- 19. golden_toy: exact-eigenfunction goldens ------------------------
     # tests/test_golden.py through the port on the card, at its sizes and
     # iteration counts (no kernel: the toy diffusions are tensor ops).
@@ -1771,7 +1941,8 @@ def main():
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
-        "launches": launches + a_lag + a_golden, "max_abs_err": lm_err,
+        "launches": launches + a_lag + a_adapt + a_golden,
+        "max_abs_err": lm_err,
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
         "library_ms": None,

@@ -1,7 +1,8 @@
 """SimulationData, Girsanov-weighted samples and capacity-bucket padding;
 counterpart of ``isokann_tpu/data.py`` (``WeightedSamples``, ``lastcat``,
-``bootstrap``, ``SimulationData`` with its bootstrap, merging,
-chi-stratified and KDE resampling, ``subsample_inds``) and of the
+``bootstrap``, trajectory pairs, subsampling, ``SimulationData`` with its
+constructors, merging, chi-stratified and KDE resampling, the
+trajectory-built datasets and the chi-sorted PDB export) and of the
 ``bucket_capacity``/``_pad_rows`` helpers of ``isokann_tpu/iso.py``.
 
 Arrays are batch-leading tensors on the simulation's device:
@@ -82,6 +83,38 @@ def flattenfirst(a):
     return a.reshape((-1,) + tuple(a.shape[2:]))
 
 
+def flattenlast(a):
+    """Keep the first dimension and flatten the rest (the reference's
+    ``flattenlast``; with batch-leading arrays ``flattenfirst`` is
+    usually the one wanted)."""
+    a = values(a)
+    return a.reshape(a.shape[0], -1)
+
+
+def getobs(x, idx):
+    """Rows ``idx`` of a tensor, a ``WeightedSamples`` or a tuple of
+    them."""
+    if isinstance(x, tuple):
+        return tuple(getobs(xi, idx) for xi in x)
+    return x[idx]
+
+
+def to_device(tree, device):
+    """A nested structure (dict, list, tuple) of tensors and
+    ``WeightedSamples`` with every tensor detached and moved to
+    ``device``; other leaves unchanged."""
+    if isinstance(tree, WeightedSamples):
+        return WeightedSamples(to_device(tree.values, device),
+                               to_device(tree.weights, device))
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree
+
+
 def bucket_capacity(n: int) -> int:
     """Round a dataset size up to its capacity bucket (two per octave:
     8, 12, 16, 24, 32, 48, ...), as the reference's trainer does."""
@@ -111,6 +144,36 @@ def bootstrap(sim, nx, ny, gen=None):
     return xs, sim.propagate(xs, ny, gen=gen)
 
 
+def data_from_trajectory(xs, reverse=True, stride=1, lag=1):
+    """(x, y) pairs of a trajectory ``xs`` (T, d): with ``reverse`` both
+    neighbours ``lag`` frames away are Koopman samples (k = 2), else the
+    next one (k = 1).  Reference ``src/data.jl:88-100``."""
+    xs = torch.as_tensor(xs)
+    n = xs.shape[0]
+    if reverse:
+        rng = torch.arange(lag, n - lag, stride, device=xs.device)
+        return xs[rng], torch.stack([xs[rng - lag], xs[rng + lag]], dim=1)
+    rng = torch.arange(0, n - lag, stride, device=xs.device)
+    return xs[rng], xs[rng + lag][:, None, :]
+
+
+def data_from_trajectories(xss, **kwargs):
+    """``data_from_trajectory`` of each trajectory, concatenated
+    (reference ``src/data.jl:113-130``)."""
+    datas = [data_from_trajectory(xs, **kwargs) for xs in xss]
+    return (torch.cat([d[0] for d in datas], dim=0),
+            torch.cat([d[1] for d in datas], dim=0))
+
+
+def model_bucketed(model, xs):
+    """``model(xs)`` without gradient, as host numpy.  The reference pads
+    the batch to its capacity bucket so that its compiled forward pass is
+    reused as the pool grows; an eager model compiles nothing per shape,
+    so nothing is padded here."""
+    with torch.no_grad():
+        return model(xs).detach().cpu().numpy()
+
+
 def subsample_inds(model, xs, n, keepedges=True, seed=None):
     """Indices such that ``model(xs[inds])`` is approximately uniform, per
     chi dimension; a (near-)constant chi falls back to uniform random
@@ -132,6 +195,35 @@ def subsample_inds(model, xs, n, keepedges=True, seed=None):
         inds.extend(subsample_uniformgrid((col - lo) / (hi - lo), n,
                                           keepedges=keepedges, rng=rng))
     return np.asarray(inds, dtype=int)
+
+
+def subsample(model, data, n, gen=None):
+    """``n`` points of ``data`` (a tensor (m, f) or (m, k, f), or an
+    (xs, ys) tuple picked by its xs) uniform in ``model``'s chi
+    (``subsample_inds``; reference ``src/data.jl:49-58``)."""
+    seed = draw_seed(make_generator(gen))
+    if isinstance(data, tuple):
+        return getobs(data, _index(subsample_inds(model, data[0], n,
+                                                  seed=seed), data[0]))
+    if data.ndim == 3:
+        data = flattenfirst(data)
+    return data[_index(subsample_inds(model, data, n, seed=seed), data)]
+
+
+def subsample_random(data, nx, gen=None):
+    """``nx`` distinct observations of ``data`` (a tensor, a
+    ``WeightedSamples`` or a tuple of them) drawn uniformly (reference
+    ``src/data.jl:141-146``)."""
+    first = data[0] if isinstance(data, tuple) else values(data)
+    n = first.shape[0]
+    if nx > n:
+        raise ValueError(f"cannot draw {nx} of {n} observations")
+    idx = torch.randperm(n, generator=make_generator(gen))[:nx]
+    return getobs(data, idx.to(first.device))
+
+
+def _index(inds, like):
+    return torch.as_tensor(inds, dtype=torch.long, device=like.device)
 
 
 @dataclass
@@ -184,6 +276,16 @@ class SimulationData:
             fys = fys.to(torch.float32)
         return cls(sim, fxs.to(torch.float32), fys, xs, ys, featurizer)
 
+    @classmethod
+    def from_trajectory(cls, xs, sim=None, featurizer=None, **kwargs):
+        """From a (T, d) trajectory through ``data_from_trajectory``
+        (``kwargs``); the simulation defaults to an
+        ``ExternalSimulation``."""
+        from .simulators.base import ExternalSimulation
+        sim = ExternalSimulation() if sim is None else sim
+        x, y = data_from_trajectory(xs, **kwargs)
+        return cls.from_coords(sim, x, y, featurizer=featurizer)
+
     @property
     def featuredim(self):
         return self.features.shape[-1]
@@ -205,6 +307,16 @@ class SimulationData:
         return SimulationData(self.sim, self.features[i],
                               self.propfeatures[i], self.coords[i],
                               self.propcoords[i], self.featurizer)
+
+    def features_of(self, coords):
+        """Raw coordinates featurized with this data's featurizer, on its
+        device, float32."""
+        coords = torch.as_tensor(coords, device=self.features.device)
+        return self.featurizer(coords).to(torch.float32)
+
+    @property
+    def pdbfile(self):
+        return getattr(self.sim, "pdbfile", None)
 
     # ---- merging & growth ------------------------------------------------
 
@@ -281,6 +393,11 @@ class SimulationData:
         pick = torch.as_tensor(selinds[iy], device=ycoords.device)
         return self.addcoords(ycoords[pick], gen=gen)
 
+    def laggedtrajectory(self, n, gen=None):
+        """``n`` lagged frames of the simulation from the last start point
+        (reference ``src/simulation.jl:267``)."""
+        return self.sim.laggedtrajectory(n, x0=self.coords[-1], gen=gen)
+
     def __repr__(self):
         return (f"SimulationData(sim={type(self.sim).__name__}, "
                 f"n={len(self)}, nk={self.nk}, dim={self.dim}, "
@@ -289,3 +406,67 @@ class SimulationData:
 
 def mergedata(d1: SimulationData, d2: SimulationData) -> SimulationData:
     return d1.merge(d2)
+
+
+def addcoords(d: SimulationData, coords, gen=None) -> SimulationData:
+    return d.addcoords(coords, gen=gen)
+
+
+def resample_strat(d: SimulationData, model, n, **kwargs) -> SimulationData:
+    return d.resample_strat(model, n, **kwargs)
+
+
+def resample_kde(d: SimulationData, model, n, **kwargs) -> SimulationData:
+    return d.resample_kde(model, n, **kwargs)
+
+
+def trajectorydata_linear(sim, steps, reverse=False, gen=None, **kwargs):
+    """One lagged trajectory of ``steps`` frames from the default start
+    state as chain data (reference ``src/simulation.jl:278-283``);
+    ``kwargs`` go to ``SimulationData.from_coords``."""
+    xs = sim.laggedtrajectory(steps, gen=make_generator(gen))
+    x, y = data_from_trajectory(xs, reverse=reverse)
+    return SimulationData.from_coords(sim, x, y, **kwargs)
+
+
+def trajectorydata_bursts(sim, steps, nk, x0=None, gen=None, **kwargs):
+    """One lagged trajectory of ``steps`` frames from ``x0`` (default: the
+    start state) with ``nk`` Koopman bursts from each frame (reference
+    ``src/simulation.jl:291-298``)."""
+    gen = make_generator(gen)
+    x0 = sim.coords if x0 is None else x0
+    xs = sim.laggedtrajectory(steps, x0=x0, gen=gen)
+    ys = sim.propagate(xs, nk, gen=gen)
+    return SimulationData.from_coords(sim, xs, ys, **kwargs)
+
+
+def exportdata(data, model, sim, path="out/data.pdb"):
+    """The coordinates of ``data`` ((n, d) or (n, k, d)) sorted by
+    ``model``'s first chi, with repeated frames dropped (the first of
+    equal first coordinates kept), written as a PDB trajectory on
+    ``sim.pdbfile``; returns the written frames, host numpy (reference
+    ``src/data.jl:159-170``)."""
+    from .md.pdbio import write_pdb_traj
+
+    dd = values(data)
+    dd = dd.reshape(-1, dd.shape[-1])
+    with torch.no_grad():
+        ks = torch.as_tensor(model(dd))[:, 0].cpu().numpy()
+    dd = dd.detach().cpu().numpy()[np.argsort(ks)]
+    _, uniq = np.unique(dd[:, 0], return_index=True)
+    dd = dd[np.sort(uniq)]
+    write_pdb_traj(path, sim.pdbfile, dd)
+    return dd
+
+
+def exportsorted(iso, path="out/sorted.pdb"):
+    """Every start point of ``iso``'s data in order of rising chi,
+    each aligned onto the one before (``aligntrajectory``), written as a
+    PDB trajectory; returns ``path`` (reference ``src/data.jl:176-183``)."""
+    from .md.pdbio import write_pdb_traj
+    from .ops.align import aligntrajectory
+
+    order = np.argsort(iso.chis()[:, 0].cpu().numpy())
+    xs = iso.data.coords[_index(order, iso.data.coords)]
+    write_pdb_traj(path, iso.data.pdbfile, aligntrajectory(xs))
+    return path

@@ -12,7 +12,9 @@ laplace, finite differences with reflecting boundaries):
 
 The alanine goldens read ``data/golden/ala2_vacuum_msm.npz``, an Ulam/MSM
 estimate of the dominant Koopman eigenfunction on the (phi, psi) torus
-with the lagged (xs, ys) data it came from.
+with the lagged (xs, ys) data it came from, and
+``data/golden/ala2_solvated_msm.npz``, the same for alanine in explicit
+solvent with float16 features of its (xs, ys) in place of coordinates.
 
 Each ``*_run`` function trains or simulates through the port's entry
 points on ``device`` at the sizes of the JAX package's golden tests and
@@ -29,8 +31,10 @@ import numpy as np
 import scipy.linalg
 import torch
 
-GOLDEN_MD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                         "data", "golden", "ala2_vacuum_msm.npz")
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "data", "golden")
+GOLDEN_MD = os.path.join(GOLDEN_DIR, "ala2_vacuum_msm.npz")
+GOLDEN_SOLVATED = os.path.join(GOLDEN_DIR, "ala2_solvated_msm.npz")
 
 
 # ==========================================================================
@@ -331,3 +335,32 @@ def md_fresh_run(device, golden=None, gen=9):
     t_gold = -lag_g / np.log(max(min(lam2_g, 0.99999), 1e-6))
     return dict(corr=abs(_corr(fresh[ok], ref[ok])), frac=float(ok.mean()),
                 t_fresh=float(t_fresh), t_gold=float(t_gold))
+
+
+def solvated_chi_run(device, gen=5, iters=600):
+    """chi trained on the committed solvated features (768 x 4 bursts of
+    231 distances, float16 on disk, float32 here) as ``ExternalSimulation``
+    data: ``pairnet(231)`` (weights from seed 0), AdamRegularized,
+    minibatch 256, ``run(iters)``.  Returns (corr, frac): |corr| of chi
+    with the committed MSM eigenfunction on the samples where that is
+    finite, and the fraction finite."""
+    from . import AdamRegularized, ExternalSimulation, Iso, SimulationData
+    from .analysis.msm import eigenfunction_on_samples
+    from .models import pairnet
+    from ._device import resolve_device
+
+    device = resolve_device(device)
+    z = np.load(GOLDEN_SOLVATED)
+    fx = torch.as_tensor(np.asarray(z["feat_x"], np.float32), device=device)
+    fy = torch.as_tensor(np.asarray(z["feat_y"], np.float32), device=device)
+    data = SimulationData.from_coords(ExternalSimulation(), fx, fy,
+                                      features=(fx, fy))
+    iso = Iso(data=data, model=pairnet(fx.shape[-1], gen=0),
+              opt=AdamRegularized(), minibatch=256, gen=gen)
+    iso.run(iters)
+    chi = iso.chis().cpu().numpy().ravel()
+    ref = eigenfunction_on_samples(
+        np.asarray(z["cv_x"], np.float64), z["cells"], z["vec"], -np.pi,
+        np.pi, int(z["nbins"]), periodic=True)
+    ok = np.isfinite(ref)
+    return abs(_corr(chi[ok], ref[ok])), float(ok.mean())

@@ -50,7 +50,7 @@ import torch
 
 from ._device import make_generator, resolve_device
 from .data import (SimulationData, WeightedSamples, bucket_capacity,
-                   pad_rows, values)
+                   pad_rows, to_device, values)
 from .models import MLP
 from .optim import NesterovRegularized
 from .targets import (DomainError, TransformISA, TransformShiftscale,
@@ -433,9 +433,14 @@ class Iso:
 
     # ---- adaptive sampling --------------------------------------------------
 
-    def addcoords(self, coords):
-        """Extend the data with new start points (``nk`` bursts each)."""
-        self.data = self.data.addcoords(coords, gen=self.gen)
+    def addcoords(self, coords_or_n):
+        """Extend the data with new start points (``nk`` bursts each): the
+        given coordinates, or for an int n the n frames of a lagged
+        trajectory from the last start point."""
+        if isinstance(coords_or_n, (int, np.integer)):
+            coords_or_n = self.data.laggedtrajectory(int(coords_or_n),
+                                                     gen=self.gen)
+        self.data = self.data.addcoords(coords_or_n, gen=self.gen)
         return self
 
     def resample_kde(self, ny, **kwargs):
@@ -483,6 +488,30 @@ class Iso:
         save(path, self)
 
 
+def run(iso: Iso, n=1, epochs=1):
+    return iso.run(n, epochs)
+
+
+def run_kde(iso: Iso, **kwargs):
+    return iso.run_kde(**kwargs)
+
+
+def chis(iso: Iso, data=None):
+    return iso.chis(data)
+
+
+def chicoords(iso: Iso, xs):
+    return iso.chicoords(xs)
+
+
+def koopman(iso: Iso):
+    return iso.koopman()
+
+
+def simulationtime(iso: Iso):
+    return iso.simulationtime()
+
+
 def rates(x: np.ndarray, y: np.ndarray):
     """K from least squares chi @ K = kchi, then the matrix log
     (x, y: (n, d) float64).  Eigenvalues escaping (0, 1) are clamped with
@@ -528,24 +557,6 @@ def chi_exit_rate(x, Kx, tau):
 # Snapshots
 # ==========================================================================
 
-def _cpu(a):
-    if isinstance(a, WeightedSamples):
-        return WeightedSamples(a.values.cpu(), a.weights.cpu())
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu()
-    if isinstance(a, dict):
-        return {k: _cpu(v) for k, v in a.items()}
-    if isinstance(a, (list, tuple)):
-        return type(a)(_cpu(v) for v in a)
-    return a
-
-
-def _to(a, device):
-    if isinstance(a, WeightedSamples):
-        return WeightedSamples(a.values.to(device), a.weights.to(device))
-    return a.to(device)
-
-
 def save(path, iso):
     """Snapshot of ``iso`` to ``path`` (``torch.save``): the model's and
     the optimiser's state dicts and the data as CPU tensors, the host
@@ -557,16 +568,16 @@ def save(path, iso):
         model_spec=dict(sizes=m.sizes, activation=m.activation,
                         lastactivation=m.lastactivation,
                         layernorm=m.layernorm),
-        model_state=_cpu(m.state_dict()),
-        opt_state=_cpu(iso.optimizer.state_dict()),
+        model_state=to_device(m.state_dict(), "cpu"),
+        opt_state=to_device(iso.optimizer.state_dict(), "cpu"),
         gen_state=iso.gen.get_state(),
         losses=list(iso.losses),
         minibatch=iso.minibatch,
         target=iso.target,
-        data=dict(features=_cpu(iso.data.features),
-                  propfeatures=_cpu(iso.data.propfeatures),
-                  coords=_cpu(iso.data.coords),
-                  propcoords=_cpu(iso.data.propcoords),
+        data=dict(features=to_device(iso.data.features, "cpu"),
+                  propfeatures=to_device(iso.data.propfeatures, "cpu"),
+                  coords=to_device(iso.data.coords, "cpu"),
+                  propcoords=to_device(iso.data.propcoords, "cpu"),
                   sim=iso.data.sim, featurizer=iso.data.featurizer))
     torch.save(state, path)
 
@@ -602,9 +613,9 @@ def load(path, sim=None, device=None):
         raise ValueError(f"the simulation runs on {sim_device}, not on "
                          f"{device}: pass sim= built for {device}")
     data = SimulationData(sim, d["features"].to(device),
-                          _to(d["propfeatures"], device),
+                          to_device(d["propfeatures"], device),
                           d["coords"].to(device),
-                          _to(d["propcoords"], device), d["featurizer"])
+                          to_device(d["propcoords"], device), d["featurizer"])
     model = MLP(**state["model_spec"], device=device)
     model.load_state_dict(state["model_state"])
     gen = torch.Generator()

@@ -8,6 +8,7 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -64,6 +65,25 @@ def read_pdb(path: str) -> PDBStructure:
                         coords, box)
 
 
+def read_pdb_traj(path: str) -> np.ndarray:
+    """Every MODEL of a PDB file as a (frames, 3N) float64 trajectory in
+    nm."""
+    frames, cur = [], []
+    with open(path) as f:
+        for line in f:
+            if line[:6] in ("ATOM  ", "HETATM"):
+                cur.append([float(line[30:38]), float(line[38:46]),
+                            float(line[46:54])])
+            elif line[:6] in ("ENDMDL", "END   ") or line.strip() == "END":
+                if cur:
+                    frames.append(cur)
+                    cur = []
+    if cur:
+        frames.append(cur)
+    arr = np.asarray(frames, dtype=np.float64) / 10.0
+    return arr.reshape(arr.shape[0], -1)
+
+
 def _format_atom_line(i, name, resname, chain, resid, x, y, z, element):
     # PDB atom-name column rules: 4-char field; names <4 chars start at col 14
     if len(name) >= 4:
@@ -89,4 +109,30 @@ def write_pdb(path: str, struct: PDBStructure, coords=None):
                 i + 1, struct.atom_names[i], struct.res_names[i],
                 struct.chain_ids[i], struct.res_ids[i],
                 xyz[i, 0], xyz[i, 1], xyz[i, 2], struct.elements[i]))
+        f.write("END\n")
+
+
+def write_pdb_traj(path: str, template, traj):
+    """Write a multi-model PDB trajectory: ``template`` (a
+    ``PDBStructure`` or the path of a PDB file) gives the atoms, ``traj``
+    (frames, 3N) or (3N,) the coordinates in nm (a tensor is copied to
+    the host)."""
+    if isinstance(template, str):
+        template = read_pdb(template)
+    if isinstance(traj, torch.Tensor):
+        traj = traj.detach().cpu().numpy()
+    traj = np.asarray(traj)
+    if traj.ndim == 1:
+        traj = traj[None, :]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        for m, frame in enumerate(traj):
+            f.write(f"MODEL     {m + 1:4d}\n")
+            xyz = frame.reshape(-1, 3) * 10.0
+            for i in range(template.natoms):
+                f.write(_format_atom_line(
+                    i + 1, template.atom_names[i], template.res_names[i],
+                    template.chain_ids[i], template.res_ids[i],
+                    xyz[i, 0], xyz[i, 1], xyz[i, 2], template.elements[i]))
+            f.write("ENDMDL\n")
         f.write("END\n")

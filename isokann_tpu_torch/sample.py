@@ -1,7 +1,15 @@
-"""Adaptive-sampling primitives on the host (numpy); counterpart of
-``subsample_uniformgrid``, ``pickclosest``, ``ASH``, ``resample_kde_ash``
-and ``kde_interior`` in ``isokann_tpu/sample.py`` (reference
-``src/utils/subsample.jl:5-177``).
+"""Adaptive-sampling primitives; counterpart of ``isokann_tpu/sample.py``
+(reference ``src/utils/subsample.jl``, ``src/utils/picking.jl`` and
+``legacy/extrapolate.jl``).
+
+The selections are host numpy on small 1-D chi arrays: chi-uniform
+stratified picks (``subsample_uniformgrid``, ``pickclosest``), average
+shifted histogram and Gaussian-KDE gap filling (``ASH``,
+``resample_kde_ash``, ``kde_needles``, ``resample_kde_needles``) and
+greedy farthest-point picking (``picking``).  ``picking_aligned`` takes
+its aligned-RMSD distances on the data's device; chi extrapolation
+(``dchidx``, ``extrapolate_x``, ``extrapolate``, ``addextrapolates``)
+runs autograd there.
 
 ``pickclosest`` runs the reference's sorted sweep in Python; the JAX
 package runs the same sweep in its native helper when that is built.
@@ -15,7 +23,12 @@ the same indices from the same chi values.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import numpy as np
+import torch
+
+from .analysis.minimumpath import dchidx, energyminimization_chilevel
 
 
 def subsample_uniformgrid(ys, n, keepedges=True, rng=None):
@@ -180,3 +193,136 @@ def resample_kde_ash(xs, ys, n=10, m=20, bandwidth=None, target=None):
     p = np.array(target_pdf(ys), dtype=np.float64)
     return _greedy_picks(ys, p, kde.counts.copy(), kde.lo, kde.step, kde.m,
                          kde.n, n)
+
+
+def kde_needles(xs, n=10, bandwidth=0.02, target=None):
+    """Gaussian-KDE gap filling: ``n`` needles, each at the minimum of
+    KDE - target over a 512-point grid spanning ``xs``, added to ``xs``
+    before the next (reference ``src/utils/subsample.jl:106-119``)."""
+    from scipy.stats import gaussian_kde
+
+    xs = list(np.asarray(xs, dtype=np.float64).ravel())
+    target_pdf = target if callable(target) else (lambda y: np.ones_like(y))
+    needles = []
+    grid = np.linspace(min(xs), max(xs), 512)
+    for _ in range(n):
+        k = gaussian_kde(np.asarray(xs),
+                         bw_method=bandwidth / max(np.std(xs), 1e-9))
+        c = grid[int(np.argmin(k(grid) - target_pdf(grid)))]
+        needles.append(c)
+        xs.append(c)
+    return np.asarray(needles)
+
+
+def resample_kde_needles(xs, ys, n, **kwargs):
+    """Indices of ``ys`` that fill the gaps of the KDE of ``xs`` (reference
+    ``src/utils/subsample.jl:92-99``)."""
+    return pickclosest(ys, kde_needles(xs, n, **kwargs))
+
+
+def picking(X, n, dists: Optional[Callable] = None):
+    """Greedy max-min (farthest point) picking of ``n`` rows of ``X``
+    (npts, d), from the row farthest from the origin.  Returns (the
+    picked rows, their indices, the (npts, n) distances to them).
+    ``dists(x, X)`` defaults to the squared Euclidean distance (numpy);
+    a given one takes rows of ``X`` as they are and returns numpy.
+    Reference ``src/utils/picking.jl:16-43``."""
+    npts = X.shape[0]
+    if npts < n:
+        raise ValueError(f"cannot pick {n} of {npts} points")
+    if dists is None:
+        X = np.asarray(X)
+        dists = lambda x, Xs: ((Xs - x) ** 2).sum(axis=-1)  # noqa: E731
+    d = np.zeros((npts, n))
+    mins = np.full(npts, np.inf)
+    qs = []
+    q = int(np.argmax(dists(X[0] * 0, X)))
+    for i in range(n):
+        qs.append(q)
+        d[:, i] = dists(X[q], X)
+        mins = np.minimum(mins, d[:, i])
+        q = int(np.argmax(mins))
+    qs = np.asarray(qs)
+    picked = X[torch.as_tensor(qs, device=X.device)] \
+        if isinstance(X, torch.Tensor) else X[qs]
+    return picked, qs, d
+
+
+def picking_aligned(x, m):
+    """``picking`` of ``m`` flat (3N,) structures by aligned RMSD
+    (reference ``src/utils/picking.jl:50-60``): the rows are centered in
+    float64, and the distances are ``aligned_rmsd_one_to_many`` in
+    float32 on their device.  Returns the centered picked rows (float32,
+    on that device), their indices and the distances."""
+    from .ops.align import aligned_rmsd_one_to_many
+
+    x = torch.as_tensor(x)
+    xr = x.double().reshape(x.shape[0], -1, 3)
+    xc = (xr - xr.mean(dim=1, keepdim=True)).reshape(x.shape[0], -1)
+    xc = xc.to(torch.float32)
+
+    def dists(xi, Xs):
+        return aligned_rmsd_one_to_many(xi, Xs).double().cpu().numpy()
+
+    return picking(xc, m, dists=dists)
+
+
+def extrapolate_x(iso, x, step, steps):
+    """x += grad chi / |grad chi|^2 * step, ``steps`` times (reference
+    ``legacy/extrapolate.jl:80-88``): each step moves chi by about
+    ``step``."""
+    x = torch.as_tensor(x, dtype=torch.float32,
+                        device=iso.data.features.device)
+    for _ in range(steps):
+        g = dchidx(iso, x)
+        x = x + g / (torch.sum(g ** 2) + 1e-12) * step
+    return x
+
+
+def extrapolate(iso, n, stepsize=0.1, steps=1, minimize=True, maxskips=10):
+    """Points beyond chi's extrema (reference ``legacy/extrapolate.jl:
+    15-78``): the bursts' end points in order of rising chi, pushed
+    down by ``stepsize`` in chi until ``n`` are kept, then in order of
+    falling chi pushed up until ``2 n`` are kept in all; each one
+    minimized on its chi levelset where asked.  A point that diverges is
+    skipped; after ``maxskips`` skips the search stops.  Returns (k, 3N),
+    k <= 2 n."""
+    from .data import flattenfirst
+
+    coords = flattenfirst(iso.data.propcoords)
+    with torch.no_grad():
+        chi = iso.model(flattenfirst(iso.data.propfeatures))[:, 0]
+    order = np.argsort(chi.cpu().numpy())
+    xs = []
+    skips = 0
+    for perm, direction, N in [(order, -1, n), (order[::-1], 1, 2 * n)]:
+        for i in perm:
+            if skips > maxskips:
+                break
+            try:
+                x = extrapolate_x(iso, coords[int(i)], direction * stepsize,
+                                  steps)
+                if minimize:
+                    x = energyminimization_chilevel(iso, x)
+                if not bool(torch.all(torch.isfinite(x))):
+                    raise FloatingPointError("non-finite extrapolate")
+                xs.append(x)
+            except (FloatingPointError, ValueError, AssertionError):
+                skips += 1
+                continue
+            if len(xs) == N:
+                break
+    if not xs:
+        return coords.new_zeros((0, coords.shape[-1]))
+    return torch.stack(xs)
+
+
+def addextrapolates(iso, n, stepsize=0.01, steps=1, minimize=True):
+    """Add ``extrapolate``'s points to the data of ``iso`` as new start
+    points (reference ``legacy/extrapolate.jl:15-24``)."""
+    if n == 0:
+        return iso
+    xs = extrapolate(iso, n, stepsize, steps, minimize=minimize)
+    if len(xs):
+        iso.addcoords(xs)
+    return iso

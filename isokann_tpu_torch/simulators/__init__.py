@@ -1,1 +1,3 @@
 """Simulations of the port."""
+
+from .base import ExternalSimulation, IsoSimulation  # noqa: F401

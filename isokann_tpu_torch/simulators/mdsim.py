@@ -166,6 +166,13 @@ class MDSimulation(IsoSimulation):
             from ..md.fixtures import alanine_dipeptide_pdb
             pdb = alanine_dipeptide_pdb()
         self.pdbfile = pdb
+        # the arguments, as provenance (escalate_lag updates their steps)
+        self.constructor = dict(
+            pdb=pdb, steps=steps, temp=temp, friction=friction, step=step,
+            features=features, method=method, cutoff=cutoff,
+            implicit=implicit, addwater=addwater, padding=padding,
+            ionic_strength=ionic_strength, rigidwater=rigidwater,
+            water_model=water_model, dense_pairs=dense_pairs)
         self.steps = int(steps)
         self.temp = float(temp)
         self.friction = float(friction)

@@ -1,7 +1,7 @@
-"""High-level workflow runners; counterpart of ``run_girsanov`` and of
-the lag tools (``lag_sweep``, ``rates_resolved``, ``cktest``,
-``training_lag_headroom``, ``escalate_lag`` and their helpers) in
-``isokann_tpu/workflows.py``.
+"""High-level workflow runners; counterpart of ``run_kde_dash``,
+``run_girsanov`` and the lag tools (``lag_sweep``, ``rates_resolved``,
+``cktest``, ``training_lag_headroom``, ``escalate_lag`` and their
+helpers) in ``isokann_tpu/workflows.py``.
 
 The lag tools propagate on the simulation's device and bring chi to the
 host; their fits and bootstraps are numpy float64, as in the reference.
@@ -23,6 +23,19 @@ from ._device import draw_seed, make_generator
 from .data import SimulationData, WeightedSamples, values
 from .md.integrators import optcontrol
 from .targets import DomainError
+
+
+def run_kde_dash(iso, generations=1, plots=None, **kwargs):
+    """``generations`` x ``iso.run_kde(generations=1, **kwargs)``
+    (reference ``run_kde_dash!``, ``src/workflows.jl:39-49``).  Returns
+    ``plots``; collecting figures in a ``plots`` list needs
+    ``utils/plots.py``, which is not ported."""
+    if plots is not None:
+        raise NotImplementedError("run_kde_dash(plots=...) needs "
+                                  "utils/plots.py, which is not ported")
+    for _ in range(generations):
+        iso.run_kde(generations=1, **kwargs)
+    return plots
 
 
 def run_girsanov(iso, generations=1, iter=100, kde=1, forcescale=1.0,
@@ -419,6 +432,8 @@ def escalate_lag(iso, new_steps, nx_max=64, keepedges=True, gen=None,
             raise TypeError(
                 f"{type(sim).__name__} exposes neither steps nor "
                 "lagtime_; pass sim_factory")
+        if hasattr(new_sim, "constructor"):
+            new_sim.constructor = {**sim.constructor, "steps": new_steps}
     gen = _gen(gen, 11)
     xs = _strat_starts(iso, min(nx_max, len(iso.data)), keepedges, gen)
     iso.data = SimulationData.from_sim(new_sim, xs=xs, nk=nk, gen=gen)

@@ -62,7 +62,8 @@ def test_port_imports_no_jax():
         "md.constraints", "ops.pairdists", "ops.pairdists_kernel",
         "ops.dihedrals", "features", "sample", "data", "iso",
         "simulators.mdsim", "simulators.langevin", "targets", "models",
-        "analysis.msm", "goldens", "workflows")} <= walked, out.stdout
+        "analysis.msm", "goldens", "workflows", "ops.align",
+        "analysis.minimumpath", "simulators.base")} <= walked, out.stdout
 
 
 def test_propagate_and_randx0_shapes():

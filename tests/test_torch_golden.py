@@ -1,6 +1,7 @@
 """The port's goldens on the CPU, mirroring the JAX package's
 ``tests/test_golden.py`` and ``tests/test_golden_md.py`` at their sizes,
-iteration counts and thresholds (``isokann_tpu_torch.goldens`` holds the
+iteration counts and thresholds, the solvated one included
+(``isokann_tpu_torch.goldens`` holds the
 exact reference solutions and the runs; ``chip_smoke.py`` runs the same
 on the card).  Slow tier: ``python -m pytest -m slow
 tests/test_torch_golden.py`` (~1-2 min on the CPU)."""
@@ -76,3 +77,12 @@ def test_fresh_dynamics_reproduce_eigenfunction():
     assert r["frac"] > 0.9
     assert r["corr"] >= 0.97, r
     assert r["t_fresh"] > r["t_gold"] / 15.0, r
+
+
+def test_solvated_chi_trains_to_msm_eigenfunction():
+    """chi retrained on the committed explicit-solvent features as
+    ``ExternalSimulation`` data reproduces the committed MSM
+    eigenfunction (``tests/test_golden_md.py``'s solvated anchor)."""
+    corr, frac = G.solvated_chi_run("cpu")
+    assert frac > 0.9
+    assert corr >= 0.95, f"solvated chi lost the golden eigenfunction: {corr}"

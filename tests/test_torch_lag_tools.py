@@ -365,14 +365,15 @@ def test_training_lag_headroom_and_escalation(trained_doublewell):
 
 
 def test_escalate_lag_md_copy_path():
-    """MDSimulation: a shallow copy with ``steps`` overridden; the
-    original simulation is untouched."""
+    """MDSimulation: a shallow copy with ``steps`` overridden, in its
+    constructor arguments too; the original simulation is untouched."""
     sim = itt.MDSimulation(steps=20, device="cpu")
     iso = itt.Iso(sim=sim, nx=8, nk=2, gen=0, opt=itt.AdamRegularized())
     iso.run(3)
     W.escalate_lag(iso, 40, nx_max=6, gen=1)
     assert iso.data.sim.steps == 40 and iso.data.sim is not sim
-    assert sim.steps == 20
+    assert iso.data.sim.constructor["steps"] == 40
+    assert sim.steps == 20 and sim.constructor["steps"] == 20
     assert len(iso.data) <= 6
     assert iso.data.propcoords.shape[1:] == (2, sim.dim)
     iso.run(2)
