@@ -22,11 +22,21 @@ port's entry points, and the goldens after them:
   (3 generations), 4 KDE needles in chi, ``addextrapolates`` (with and
   without the levelset minimization) and ``exportsorted`` read back:
   the data grows by exactly what each step adds, kernel A launches once
-  a lag and once a propagation;
+  a lag and once a propagation; then, on another copy, the chi ensemble
+  (``ChiEnsemble`` of 8 members, ``run(100)``, ``chi_std``,
+  ``resample_uncertainty(ny=8, explore=0.25)``, ``run(50)``; one launch of
+  kernel A), timed against 8 sequential ``Iso.run(100)``;
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
-  Girsanov kernel, 256 padded walkers x 100 ABOBA steps per generation.
+  Girsanov kernel, 256 padded walkers x 100 ABOBA steps per generation;
+  then the biased paths that kernel B does not run, each through kernel
+  A's forces entry once a step: a biased ``trajectory`` (100 steps, every
+  10th saved) and ``randx0(4)`` under the quickstart's bias, a
+  propagation of 4 x 8 walkers under a bias the Girsanov kernel does not
+  take, a Brownian ``MDSimulation`` propagation, and the direct
+  integrators ``integrate_langevin``, ``integrate_girsanov`` and
+  ``langevin_girsanov``.
 
 - the reference's trp-cage production loop (``tools/run_trpcage_
   production.py``): ``peptide_pdb`` builds TC5B (313 atoms) from sequence
@@ -38,8 +48,11 @@ port's entry points, and the goldens after them:
   single-walker steps, 64 padded walkers x 100 steps in propagate, 32 x
   100 per generation); then the production tool's stages on that pilot
   (``lag_sweep`` at 100/200 steps, ``cktest``, two generations of its
-  campaign loop with ``training_lag_headroom``, ``escalate_lag`` to 200
-  steps and a generation there: 1,200 steps of the same kernel).
+  ``campaign()`` of ``tools/run_trpcage_production_torch.py``,
+  checkpointed after each, ``escalate_lag`` to 200 steps and a generation
+  there, then one more generation twice: relaunched from the checkpoint
+  through the tool's resume path and on the learner in memory, which must
+  agree: 1,600 steps of the same kernel).
 
 - the reference's explicit-solvent configuration
   (``examples/solvated_peptide.py``, full variant): ``peptide_pdb``
@@ -49,8 +62,9 @@ port's entry points, and the goldens after them:
   minimum image), 4 walkers equilibrate for 200 steps, then randx0(4)
   (400 single-walker steps from the equilibrated frame), propagate of
   16 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
-  features, chis/koopman/rates: the cell-list pair-sweep kernel at every
-  constrained MD step.
+  features, chis/koopman/rates, then a biased propagation of the 16
+  walkers under a chi-gradient bias (constrained ABOBA): the cell-list
+  pair-sweep kernel at every constrained MD step.
 
 - villin HP35 with all-pairs features on the hybrid route
   (``tools/run_villin_scale.py``'s system, ``examples/villin.py``'s
@@ -162,6 +176,17 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def _production_tool():
+    """``tools/run_trpcage_production_torch.py`` as a module."""
+    import importlib.util
+    path = os.path.join(ROOT, "tools", "run_trpcage_production_torch.py")
+    spec = importlib.util.spec_from_file_location(
+        "run_trpcage_production_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main():
     watchdog()
     t_start = time.perf_counter()
@@ -268,9 +293,10 @@ def main():
     # B=1 (addcoords(20)'s lags), 128 (its 100 bursts), 64 (50 bursts of
     # the aligned picks) and 32 (20 bursts of each KDE generation, of the
     # KDE needles and of the extrapolated points); B=37 also covers a
-    # partly filled last block
+    # partly filled last block.  Its forces entry runs at B=1 and B=32 on
+    # the biased paths (phase biased_paths)
     chains_qs = sim.bootstrap_chains(100)[0]
-    ferr = lm_err = 0.0
+    ferr = fae = lm_err = 0.0
     for b in (B, 128, 64, 37, 32, chains_qs, 1):
         xb, vb = x[:b].contiguous(), v0[:b].contiguous()
         f_k = LK.forces(plan, xb)
@@ -288,6 +314,7 @@ def main():
         require(xrel < 1e-5 and vrel < 1e-4,
                 f"noiseless LangevinMiddle vs plain at B={b}")
         ferr, lm_err = max(ferr, fe), max(lm_err, ae)
+        fae = max(fae, float((f_k - f_p).abs().max()))
 
     BT, NT = 4096, 2000
     xT = sim.coords[None, :].expand(BT, sim.dim).contiguous()
@@ -407,9 +434,14 @@ def main():
           f"{LK.blocks(1)} at B=1 and {LK.blocks(B)} at B={B} (a warp per "
           f"walker, {LK.WARPS_PER_BLOCK} a block); bound at B=1 x100 steps "
           f"{b1ms:.5f} ms ({b1ms / ms1:.2%} of it)")
-    fms = cuda_ms(lambda: LK.forces(plan, x), reps=5)
-    print(f"  forces entry (parity only, not on the main path) B={B}: "
-          f"{fms:.4f} ms, max rel err {ferr:.3e} {stamp}")
+    fms = {b: cuda_ms(lambda: LK.forces(plan, x[:b]), reps=20)
+           for b in (1, 32, B)}
+    fplain_ms = cuda_ms(lambda: LK.forces_plain(plan, x[:32]), reps=5)
+    fbms, fby = LK.forces_bound_ms(plan, 32)
+    print(f"  forces entry (the biased paths' force, B=1 and 32): "
+          f"{fms[1]:.4f} ms at B=1, {fms[32]:.4f} at B=32, {fms[B]:.4f} at "
+          f"B={B}; plain {fplain_ms:.4f} ms at B=32; bound {fbms:.6f} ms at "
+          f"B=32 ({fby}); max rel err {ferr:.3e}, abs {fae:.3e} {stamp}")
     BL, NL = 16384, 1000
     xL = sim.coords[None, :].expand(BL, sim.dim).contiguous()
     vL = sim.random_velocities(itt.make_generator(8), xL.shape)
@@ -611,6 +643,102 @@ def main():
     require(np.all(np.diag(Qa) < 0), "rates() has a negative diagonal")
     phase("adaptive", t0, " ".join(f"{k} {v:.3f}s" for k, v in ta.items()))
 
+    # ---- 5d. ensemble: the chi ensemble, uncertainty-targeted sampling ----
+    # On another copy of the quickstart learner (the later phases keep its
+    # own chi): 8 members of its model's spec (231 -> 38 -> 6 -> 1), each
+    # drawn anew, trained together (one batched product a layer, each
+    # member's own minibatch permutation: the bucket is 128 > 100, one
+    # CUDA-graph step a minibatch), chi_std, 8 new start points where the
+    # members disagree most (2 of them uniform; 40 bursts, one launch of
+    # kernel A at B=64), then run(50) on the 108 points.  Timed against 8
+    # sequential Iso.run(100) of the same shapes.  The members' agreement
+    # bar of the JAX test (pairwise corr > 0.9 after alignment,
+    # tests/test_ensemble.py:37-51) is held on that test's own system
+    # (Doublewell, nx 64, nk 4, 5 members, run(120)); on alanine 100
+    # iterations from 8 independent draws leave members apart (the spread
+    # the ensemble measures), and their correlations are printed.
+    t0 = time.perf_counter()
+    LK.langevin_middle.launches = 0
+    EM, NX_NEW = 8, 8
+    eiso = itt.Iso(data=iso.data, model=copy.deepcopy(iso.model),
+                   opt=iso.opt, minibatch=iso.minibatch, gen=40)
+    r0 = sim.retries
+    te = {}
+    t1 = time.perf_counter()
+    ens = itt.ChiEnsemble(eiso, n_members=EM, gen=41)
+    ens.run(EPISODES)
+    torch.cuda.synchronize()
+    te["ChiEnsemble + run(100)"] = time.perf_counter() - t1
+    el = np.asarray(ens.losses)
+    t1 = time.perf_counter()
+    estd = ens.chi_std()
+    torch.cuda.synchronize()
+    te["chi_std"] = time.perf_counter() - t1
+    echi = ens.chi_members().cpu().numpy()[:, :, 0]
+    ecorr = np.corrcoef(echi)
+    t1 = time.perf_counter()
+    itt.resample_uncertainty(eiso, ens, ny=NX_NEW, explore=0.25,
+                             gen=itt.make_generator(42))
+    torch.cuda.synchronize()
+    te["resample_uncertainty"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ens.run(50)
+    torch.cuda.synchronize()
+    te["run(50)"] = time.perf_counter() - t1
+    el2 = np.asarray(ens.losses)[EPISODES:]
+    a_ens = LK.langevin_middle.launches
+    want_ens = 1 + sim.retries - r0
+    # 8 sequential learners of the same shapes: each captures its own step
+    t1 = time.perf_counter()
+    for e in range(EM):
+        itt.Iso(data=iso.data,
+                model=itt.pairnet(nfeat, gen=60 + e, device=dev),
+                opt=iso.opt, minibatch=iso.minibatch, gen=70 + e
+                ).run(EPISODES)
+    torch.cuda.synchronize()
+    te["8 x Iso.run(100)"] = time.perf_counter() - t1
+    # the JAX test's bar on its own system
+    t1 = time.perf_counter()
+    dw = itt.Iso(sim=itt.Doublewell(), nx=64, nk=4, gen=43,
+                 opt=itt.AdamRegularized())
+    dens = itt.ChiEnsemble(dw, n_members=5, gen=44).run(120)
+    dchi = dens.chi_members(torch.linspace(-1.3, 1.3, 101, device=dev)[
+        :, None]).cpu().numpy()[:, :, 0]
+    dcorr = np.corrcoef(dchi)
+    dl = np.asarray(dens.losses)
+    te["doublewell"] = time.perf_counter() - t1
+    print(f"  ensemble: {EM} members x {ens.model.sizes}, data "
+          f"{len(iso.data)} -> {len(eiso.data)}; losses first 10 "
+          f"{el[:10].mean(axis=0).round(4).tolist()} -> last 10 "
+          f"{el[-10:].mean(axis=0).round(4).tolist()}; run(50) last "
+          f"{el2[-1].round(4).tolist()}; chi_std max {float(estd.max()):.4f}"
+          f" mean {float(estd.mean()):.4f}; aligned pairwise corr min "
+          f"{ecorr.min():.4f}, rows "
+          f"{[round(float(np.sort(r)[1]), 3) for r in ecorr]}; "
+          f"langevin_middle launches {a_ens} (expected {want_ens}); "
+          f"Doublewell (the JAX test's system) corr min {dcorr.min():.5f}; "
+          f"seconds { {k: round(v, 3) for k, v in te.items()} }: "
+          f"ensemble run(100) {te['ChiEnsemble + run(100)']:.3f}s against "
+          f"8 sequential Iso.run(100) {te['8 x Iso.run(100)']:.3f}s {stamp}")
+    require(el.shape == (EPISODES, EM) and np.all(np.isfinite(el))
+            and np.all(el[-10:].mean(axis=0) < el[:10].mean(axis=0))
+            and ens.finite_members.all(),
+            "every member's losses finite and falling")
+    require(el2.shape == (50, EM) and np.all(np.isfinite(el2)),
+            "run(50) on the grown data finite")
+    require(len(eiso.data) == len(iso.data) + NX_NEW
+            and eiso.data.propcoords.shape[1] == NK
+            and bool(torch.isfinite(eiso.data.propcoords).all()),
+            "resample_uncertainty added 8 points")
+    require(estd.shape == (len(iso.data), 1)
+            and bool(torch.isfinite(estd).all()), "chi_std finite")
+    require(a_ens == want_ens, "one launch of kernel A for the 40 bursts")
+    require(dl.shape == (120, 5) and np.all(np.isfinite(dl))
+            and np.all(dl[-10:].mean(axis=0) < dl[:10].mean(axis=0))
+            and dcorr.min() > 0.9,
+            "Doublewell: members learn and agree after alignment")
+    phase("ensemble", t0, " ".join(f"{k} {v:.3f}s" for k, v in te.items()))
+
     # ---- 6. Girsanov kernel against plain -----------------------------------
     t0 = time.perf_counter()
     FS, BB, QRATE, NS = 0.7, 0.4, -2.0, 10
@@ -710,7 +838,8 @@ def main():
     while lvar >= 1.0 and fs_m > 1 / 64:
         fs_m /= 2
         try:
-            spec_m = itt.optcontrol(iso, forcescale=fs_m).optcontrol_spec
+            bias_m = itt.optcontrol(iso, forcescale=fs_m)
+            spec_m = bias_m.optcontrol_spec
         except itt.DomainError:
             spec_m = None
         require(spec_m is not None,
@@ -813,6 +942,113 @@ def main():
           f"B=1: {cg_ms:.4f} ms {stamp}")
     phase("girsanov_timing", t0)
 
+    # ---- 8b. biased_paths: the biased paths kernel B does not run ---------
+    # On the quickstart's alanine, each through kernel A's forces entry once
+    # a step (the plain recursions over MDSimulation.force): a biased
+    # trajectory (100 steps, every 10th saved) and randx0(4) (400 steps)
+    # under the quickstart's optcontrol bias at the forcescale where phase
+    # 6 found var(logw) < 1 over a lag (at 1.0 the running weights
+    # underflow to 0 within a lag), at B=1; 4 x 8 walkers (B=32) under
+    # the optcontrol form over a chi model the Girsanov kernel does not
+    # compute (a sigmoid output layer); a Brownian MDSimulation's bursts of
+    # the same walkers (friction 1000/ps, where 2 fs of overdamped
+    # dynamics is stable); integrate_langevin, and integrate_girsanov (on
+    # the Brownian simulation) and langevin_girsanov under the quickstart's
+    # bias, 100 steps each at B=1.
+    t0 = time.perf_counter()
+    for k in (LK.langevin_middle, LK.forces, GK.aboba_girsanov):
+        k.launches = 0
+    tb, fl = {}, {}
+    bgen = itt.make_generator(80)
+    bsim = itt.MDSimulation(steps=100, integrator="brownian",
+                            friction=1000.0)
+    rb0 = bsim.retries
+
+    def biased(name, fn, steps):
+        """``fn()`` timed, with the forces launches it should take."""
+        n0 = LK.forces.launches
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        tb[name] = time.perf_counter() - t1
+        fl[name] = (LK.forces.launches - n0, steps)
+        return out
+
+    qbias = sim.bias = bias_m
+    try:
+        btr = biased("trajectory", lambda: sim.trajectory(
+            steps=100, saveevery=10, gen=bgen), 100)
+        bx0 = biased("randx0(4)", lambda: sim.randx0(4, gen=bgen), 400)
+        qspec = qbias.optcontrol_spec
+        sim.bias = I.optcontrol_bias(
+            densenet([nfeat, 38, 6, 1], lastactivation="sigmoid",
+                     layernorm=True, gen=81, device=dev),
+            sim.featurizer, 0.5, qspec["b"], qspec["qrate"], qspec["Tmax"])
+        require(not sim.kernel_takes_bias()
+                and sim.biased_route(dev) == "recursion",
+                "the sigmoid-output chi model is not the Girsanov kernel's")
+        bws = biased("propagate 4x8, any bias", lambda: sim.propagate(
+            bx0, 8, gen=bgen), 100)
+    finally:
+        sim.bias = None
+    bys = biased("brownian propagate 4x8", lambda: bsim.propagate(
+        bx0, 8, gen=bgen), 100)
+    bil = biased("integrate_langevin", lambda: sim.integrate_langevin(
+        gen=bgen), 100)
+    big, blw = biased("integrate_girsanov", lambda: bsim.integrate_girsanov(
+        bias=qbias, gen=bgen), 100)
+    blg = biased("langevin_girsanov", lambda: sim.langevin_girsanov(
+        bias=qbias, gen=bgen), 100)
+    f_launches = LK.forces.launches
+    print(f"  biased_paths: bias forcescale {fs_m}; forces launches "
+          f"{f_launches} by stage "
+          f"{ {k: v[0] for k, v in fl.items()} } (expected "
+          f"{ {k: v[1] for k, v in fl.items()} }), langevin_middle "
+          f"{LK.langevin_middle.launches}, aboba_girsanov "
+          f"{GK.aboba_girsanov.launches}; trajectory weights "
+          f"{btr.weights.cpu().numpy().round(4).tolist()}; any-bias E[w] "
+          f"{float(bws.weights.mean()):.4f}; Brownian retries "
+          f"{bsim.retries - rb0}, max displacement "
+          f"{float((bys - bx0[:, None]).abs().max()):.4f} nm; "
+          f"integrate_girsanov logw {blw.cpu().numpy().round(4).tolist()}; "
+          f"langevin_girsanov weights "
+          f"[{float(blg.weights.min()):.4f}, {float(blg.weights.max()):.4f}]"
+          f"; seconds { {k: round(v, 3) for k, v in tb.items()} } {stamp}")
+    require(all(v[0] == v[1] for v in fl.values())
+            and f_launches == sum(v[0] for v in fl.values()),
+            "the forces entry launched once a step of every biased path")
+    require(LK.langevin_middle.launches == 0
+            and GK.aboba_girsanov.launches == 0,
+            "the biased paths launch neither LangevinMiddle nor Girsanov")
+    require(isinstance(btr, itt.WeightedSamples)
+            and btr.values.shape == (10, sim.dim)
+            and bool(torch.isfinite(btr.values).all())
+            and bool(torch.isfinite(btr.weights).all())
+            and bool((btr.weights > 0).all()),
+            "biased trajectory: 10 frames, finite positive weights")
+    require(not isinstance(bx0, itt.WeightedSamples)
+            and bx0.shape == (4, sim.dim)
+            and bool(torch.isfinite(bx0).all()), "biased randx0: values")
+    require(isinstance(bws, itt.WeightedSamples)
+            and bws.values.shape == (4, 8, sim.dim)
+            and bool(torch.isfinite(bws.values).all())
+            and bool(torch.isfinite(bws.weights).all()),
+            "any-bias propagate: finite WeightedSamples")
+    require(bys.shape == (4, 8, sim.dim) and bsim.retries == rb0
+            and bool(torch.isfinite(bys).all())
+            and float((bys - bx0[:, None]).abs().max()) > 0,
+            "Brownian bursts finite and moved, no retry")
+    require(bil.shape == (1, sim.dim) and bool(torch.isfinite(bil).all())
+            and big.shape == (1, sim.dim)
+            and bool(torch.isfinite(big).all())
+            and bool(torch.isfinite(blw).all())
+            and blg.values.shape == (100, sim.dim)
+            and bool(torch.isfinite(blg.values).all())
+            and bool(torch.isfinite(blg.weights).all()),
+            "direct integrators finite")
+    phase("biased_paths", t0, " ".join(f"{k} {v:.3f}s"
+                                       for k, v in tb.items()))
+
     # ---- 9. trp-cage path ----------------------------------------------------
     # tools/run_trpcage_production.py at its production widths: TC5B built
     # from sequence and minimized in OBC2 (1500 FIRE steps), a 100-step lag,
@@ -896,31 +1132,38 @@ def main():
     tframes = tiso.data.coords      # phase 10's start frames
 
     # ---- 9b. trpcage_production: the production tool's stages ----------------
-    # tools/run_trpcage_production.py after its pilot, through the port's
+    # tools/run_trpcage_production_torch.py after its pilot, through its
     # public functions on phase 9's trained Iso: the lag sweep and its
-    # recommendation, the CK test, two generations of campaign()'s loop
-    # body (run(50) instead of 300, resample_strat(3), the cutoff) with the
-    # training-lag headroom after each, one escalate_lag to 200 steps on
-    # the copy path, called whatever the headroom says, and one generation
-    # at 200 steps.  The tool's child processes, checkpoints, resume and
-    # plots are not ported.  Kernel D at every MD step.
+    # recommendation, the CK test, two generations of the tool's campaign()
+    # (run(50) instead of 300, resample_strat(3), the cutoff) checkpointed
+    # after each into a temporary directory, one escalate_lag to 200 steps
+    # on the copy path, called whatever the headroom says, and a generation
+    # at 200 steps checkpointed again.  Then one more generation twice:
+    # relaunched from that checkpoint through the tool's resume path (load
+    # and the telemetry JSON) and on the learner in memory; the two must
+    # agree.  Kernel D at every MD step.
     t0 = time.perf_counter()
     GB.gb_force.launches = 0
     LK.langevin_middle.launches = 0
     GK.aboba_girsanov.launches = 0
     PIT, PRES, PNX, PNK = 50, 3, 8, 4
-    tp, stage_d, stage_want = {}, {}, {}
-    r0 = tsim.retries
+    tp, stage_d, stage_want, stage_losses = {}, {}, {}, {}
+    tool = _production_tool()
+    gkw = dict(iters=PIT, resamples=PRES, cutoff=CUTOFF, label="smoke")
 
-    def stage(name, fn, steps, retry_steps):
+    def stage(name, fn, steps, retry_steps, learner=None):
         """``fn()`` timed, with its D launches against ``steps`` (one a
-        step of each propagation) plus ``retry_steps`` a retry."""
-        n0, rr = GB.gb_force.launches, tiso.data.sim.retries
+        step of each propagation) plus ``retry_steps`` a retry of the
+        learner's simulation, and the losses it added to the learner."""
+        learner = learner or tiso
+        n0, rr = GB.gb_force.launches, learner.data.sim.retries
+        nl = len(learner.losses)
         t1 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         tp[name] = time.perf_counter() - t1
-        retries = tiso.data.sim.retries - rr
+        stage_losses[name] = len(learner.losses) - nl
+        retries = learner.data.sim.retries - rr
         stage_d[name] = GB.gb_force.launches - n0
         stage_want[name] = (steps + min(retry_steps) * retries,
                             steps + max(retry_steps) * retries)
@@ -933,29 +1176,50 @@ def main():
     pck_ok, pckrows = stage("cktest", lambda: W.cktest(
         tiso, factors=(2,), nx=PNX, nk=PNK, gen=itt.make_generator(33),
         verbose=False), 300, (100, 200))
-
-    def generation():
-        n_l = len(tiso.losses)
-        tiso.run(PIT)
-        tiso.resample_strat(PRES)
-        if len(tiso.data) > CUTOFF:
-            tiso.data = tiso.data[len(tiso.data) - CUTOFF:]
-        return dict(n=len(tiso.data), loss_first=tiso.losses[n_l],
-                    loss_last=tiso.losses[-1],
-                    headroom=W.training_lag_headroom(tiso),
-                    steps=tiso.data.sim.steps)
-
-    prod = [stage(f"generation {g}", generation, 100, (100,))
-            for g in range(2)]
-    lam_before = prod[-1]["headroom"]
-    stage("escalate_lag", lambda: W.escalate_lag(
-        tiso, 200, nx_max=8, gen=itt.make_generator(34)), 200, (200,))
-    esim = tiso.data.sim
-    n_escalated = len(tiso.data)
-    prod.append(stage("generation 2", generation, 200, (200,)))
+    tel, results = [], {}
+    with tempfile.TemporaryDirectory() as ck:
+        stage("campaign 0-1", lambda: tool.campaign(
+            tiso, 2, telemetry=tel, results=results, out=ck,
+            checkpoint_every=1, **gkw), 200, (100,))
+        lam_before = W.training_lag_headroom(tiso)
+        stage("escalate_lag", lambda: W.escalate_lag(
+            tiso, 200, nx_max=8, gen=itt.make_generator(34)), 200, (200,))
+        esim = tiso.data.sim
+        n_escalated = len(tiso.data)
+        stage("campaign 2", lambda: tool.campaign(
+            tiso, 3, telemetry=tel, results=results, out=ck,
+            checkpoint_every=1, start_gen=2, **gkw), 200, (200,))
+        lam_after = W.training_lag_headroom(tiso)
+        t1 = time.perf_counter()
+        riso, meta = tool.load_campaign(ck)
+        tp["load"] = time.perf_counter() - t1
+        rsim = riso.data.sim
+        resumed_from = meta["done"]
+        ck_files = sorted(os.listdir(ck))
+        require(resumed_from == 3 and len(meta["telemetry"]) == 3
+                and rsim.steps == 200 and rsim.constructor["steps"] == 200
+                and rsim.device == dev and rsim.route == "hybrid"
+                and len(riso.data) == len(tiso.data)
+                and riso.losses == tiso.losses
+                and torch.equal(riso.data.coords, tiso.data.coords)
+                and riso.gen.get_state().equal(tiso.gen.get_state()),
+                "the checkpoint holds the learner, its generator and the "
+                "escalated simulation")
+        stage("resumed generation 3", lambda: tool.campaign(
+            riso, 4, telemetry=meta["telemetry"], out=ck,
+            checkpoint_every=1, start_gen=resumed_from,
+            already_spent=meta["telemetry"][-1]["t_total"], **gkw),
+            200, (200,), learner=riso)
+    stage("uninterrupted generation 3", lambda: tool.campaign(
+        tiso, 4, telemetry=tel, start_gen=3, **gkw), 200, (200,))
     d_prod = GB.gb_force.launches
-    for g, row in enumerate(prod):
-        print(f"  production gen {g}: {row}")
+    rchi, uchi = riso.chis(), tiso.chis()
+    chi_dev = float((rchi - uchi).abs().max())
+    loss_dev = abs(riso.losses[-1] - tiso.losses[-1])
+    same_bits = (torch.equal(rchi, uchi) and riso.losses == tiso.losses
+                 and torch.equal(riso.data.propcoords, tiso.data.propcoords))
+    for row in tel:
+        print(f"  production {row}")
     print(f"  trpcage_production: lag_sweep (100, 200) recommends {prec} "
           f"(_recommend_lag {prec2}; timescales "
           f"{[round(r['timescale'], 4) for r in prows]} ps, slow eigenvalues "
@@ -963,10 +1227,15 @@ def main():
           f"{[r['resolved'] for r in prows]}); cktest factor 2 ok={pck_ok} "
           f"max_abs_dev {pckrows[0]['max_abs_dev']:.4f}; headroom "
           f"{lam_before:.5f} before escalate_lag(200) (called whatever it "
-          f"says), {prod[-1]['headroom']:.5f} after a generation at "
-          f"{esim.steps} steps; escalated data {n_escalated} points; "
-          f"gb_force launches {d_prod} by stage {stage_d} (expected "
-          f"{stage_want}), retries {esim.retries - r0}; seconds "
+          f"says), {lam_after:.5f} after a generation at {esim.steps} "
+          f"steps; escalated data {n_escalated} points; checkpoint files "
+          f"{ck_files}; resumed from generation {resumed_from}: data "
+          f"{len(riso.data)} / {len(tiso.data)} points, chi max deviation "
+          f"{chi_dev:.3e}, last loss {riso.losses[-1]:.6f} / "
+          f"{tiso.losses[-1]:.6f} (deviation {loss_dev:.3e}), bit for bit "
+          f"{same_bits}; gb_force launches {d_prod} by stage {stage_d} "
+          f"(expected {stage_want}); losses added by stage "
+          f"{stage_losses}; seconds "
           f"{ {k: round(v, 3) for k, v in tp.items()} } {stamp}")
     require(all(stage_want[k][0] <= stage_d[k] <= stage_want[k][1]
                 for k in stage_d) and d_prod == sum(stage_d.values()),
@@ -987,16 +1256,31 @@ def main():
             and n_escalated == PNX
             and tiso.data.propcoords.shape[1:] == (TNK, tsim.dim),
             "escalate_lag: a copy at 200 steps re-seeded with 8 starts")
-    require(all(np.isfinite(r["headroom"]) and np.isfinite(r["loss_last"])
-                for r in prod) and prod[-1]["n"] == PNX + PRES
-            and prod[-1]["steps"] == 200,
-            "production generations: finite losses and headroom")
+    require(ck_files == ["campaign_checkpoint.pkl",
+                         "campaign_telemetry.json"]
+            and [r["gen"] for r in tel] == [0, 1, 2, 3]
+            and [r["steps"] for r in tel] == [100, 100, 200, 200]
+            and [r["n"] for r in tel] == [TNX + GENS * PRES + PRES,
+                                          TNX + GENS * PRES + 2 * PRES,
+                                          PNX + PRES, PNX + 2 * PRES]
+            and all(np.isfinite(r["loss"]) for r in tel),
+            "campaign telemetry: four generations, finite losses")
+    # campaign() goes on past a generation whose run raised DomainError
+    # (a collapsed target), as the JAX tool does; such a run records no
+    # loss, so each generation must have added its PIT losses
+    require(all(stage_losses[k] == PIT * g for k, g in (
+        ("campaign 0-1", 2), ("campaign 2", 1), ("resumed generation 3", 1),
+        ("uninterrupted generation 3", 1))),
+            "every campaign generation trained (no collapse passed over)")
+    require(np.isfinite(lam_before) and np.isfinite(lam_after),
+            "training-lag headroom finite before and after the escalation")
+    require(len(riso.data) == len(tiso.data) and chi_dev <= 1e-6
+            and loss_dev <= 1e-6,
+            "the resumed generation equals the uninterrupted one")
     require(bool(torch.isfinite(tiso.data.propcoords).all()),
             "finite production bursts")
     phase("trpcage_production", t0,
-          f"lag_sweep {tp['lag_sweep']:.3f}s cktest {tp['cktest']:.3f}s "
-          f"escalate {tp['escalate_lag']:.3f}s generations "
-          f"{sum(v for k, v in tp.items() if k.startswith('generation')):.3f}s")
+          " ".join(f"{k} {v:.3f}s" for k, v in tp.items()))
 
     # ---- 10. gb_force against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -1282,8 +1566,56 @@ def main():
     require(schi.shape == (NXS, 1) and bool(torch.isfinite(schi).all())
             and bool(torch.isfinite(skchi).all()), "chis finite")
     require(np.all(np.diag(sQ) < 0), "rates() has a negative diagonal")
+
+    # a biased constrained propagation of the NXS x NKS walkers: the
+    # optcontrol form over the chi just trained with a fixed b = 0.5 and
+    # rate log(0.9) / lag (optcontrol's own fit may not contract at nx = 4,
+    # ROADMAP Queue 3 (n)); forcescale 0.5.  Constrained ABOBA: SHAKE on
+    # the drifts, the bias projected onto the constraint tangent space,
+    # kernel E (layout and sweep) once a step, no retry.
+    for k in (NBK.neighbor_sweep, NBK.neighbor_layout, LK.langevin_middle,
+              LK.forces, GK.aboba_girsanov, GB.gb_force):
+        k.launches = 0
+    ssim.bias = I.optcontrol_bias(siso.model, ssim.featurizer, 0.5, 0.5,
+                                  float(np.log(0.9)) / ssim.lagtime,
+                                  ssim.lagtime)
+    t1 = time.perf_counter()
+    try:
+        sw = ssim.propagate(sxs, NKS, gen=sgen)
+    finally:
+        ssim.bias = None
+    torch.cuda.synchronize()
+    ts_biased = time.perf_counter() - t1
+    sviol = cset.max_violation(sw.values)
+    slogw = torch.log(sw.weights)
+    print(f"  solvated biased propagate {NXS}x{NKS} x100 constrained ABOBA "
+          f"steps: {ts_biased:.3f}s ({1e3 * ts_biased / 100:.3f} ms/step); "
+          f"constraint violation {sviol:.2e} nm; logw "
+          f"[{float(slogw.min()):.4f}, {float(slogw.max()):.4f}], E[w] "
+          f"{float(sw.weights.mean()):.4f}; neighbor_sweep launches "
+          f"{NBK.neighbor_sweep.launches}, neighbor_layout "
+          f"{NBK.neighbor_layout.launches} (expected 100 each); overflows "
+          f"{ssim.overflows} {stamp}")
+    require(isinstance(sw, itt.WeightedSamples)
+            and sw.values.shape == (NXS, NKS, ssim.dim)
+            and bool(torch.isfinite(sw.values).all())
+            and bool(torch.isfinite(slogw).all())
+            and float(slogw.abs().max()) > 0,
+            "biased constrained propagation: finite frames and log-weights,"
+            " the bias acting")
+    require(sviol <= 1e-5, "biased rigid waters held to 1e-5 nm")
+    require(NBK.neighbor_sweep.launches == 100
+            and NBK.neighbor_layout.launches == 100,
+            "biased constrained: layout and sweep once a step")
+    require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
+            and GK.aboba_girsanov.launches == 0
+            and GB.gb_force.launches == 0,
+            "the biased constrained run launches no other kernel")
+    require(ssim.overflows == 0, "no neighbor-cell overflow")
+    eb_launches = NBK.neighbor_sweep.launches
     phase("solvated_path", t0, f"randx0 {ts_x0:.3f}s propagate "
-                               f"{ts_prop:.3f}s")
+                               f"{ts_prop:.3f}s biased propagate "
+                               f"{ts_biased:.3f}s")
 
     # ---- 13. neighbor_sweep against plain -----------------------------------
     t0 = time.perf_counter()
@@ -1941,10 +2273,17 @@ def main():
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
-        "launches": launches + a_lag + a_adapt + a_golden,
+        "launches": launches + a_lag + a_adapt + a_ens + a_golden,
         "max_abs_err": lm_err,
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "langevin_forces", "route": "cuda",
+        "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
+        "replaces": "isokann_tpu/md/pallas_md.py:318",
+        "launches": f_launches, "max_abs_err": fae, "ms": fms[32],
+        "plain_ms": fplain_ms, "bound_ms": fbms, "bound_by": fby,
         "library_ms": None,
     }, {
         "name": "aboba_girsanov", "route": "cuda",
@@ -1965,14 +2304,16 @@ def main():
         "name": "neighbor_sweep", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": e_launches, "max_abs_err": nb_err, "ms": e_ms[64],
+        "launches": e_launches + eb_launches, "max_abs_err": nb_err,
+        "ms": e_ms[64],
         "sweep_ms": e_alone[64], "plain_ms": e_plain[64], "bound_ms": e_bms,
         "bound_by": e_by, "library_ms": None,
     }, {
         "name": "neighbor_layout", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": l_launches, "max_abs_err": lay_err, "ms": e_prep[64],
+        "launches": l_launches + eb_launches, "max_abs_err": lay_err,
+        "ms": e_prep[64],
         "plain_ms": l_plain[64],
         "bound_ms": l_bound[64], "bound_by": "bytes",
         "library_ms": None,

@@ -22,6 +22,7 @@ from .data import (SimulationData, WeightedSamples, addcoords,  # noqa: E402
                    mergedata, resample_kde, resample_strat, subsample,
                    subsample_inds, subsample_random, to_device,
                    trajectorydata_bursts, trajectorydata_linear)
+from .ensemble import ChiEnsemble, resample_uncertainty  # noqa: E402
 from .features import (FeaturesAll, FeaturesAngles,  # noqa: E402
                        FeaturesAtoms, FeaturesCoords, FeaturesPairs,
                        FeaturesRandomPairs)
@@ -102,9 +103,9 @@ def atom_indices(pdb: str, selector: str = "all"):
 
 
 __all__ = [
-    "AdamRegularized", "Diffusion", "DomainError", "Doublewell",
-    "ExternalSimulation", "FeaturesAll", "FeaturesAngles", "FeaturesAtoms",
-    "FeaturesCoords", "FeaturesPairs", "FeaturesRandomPairs",
+    "AdamRegularized", "ChiEnsemble", "Diffusion", "DomainError",
+    "Doublewell", "ExternalSimulation", "FeaturesAll", "FeaturesAngles",
+    "FeaturesAtoms", "FeaturesCoords", "FeaturesPairs", "FeaturesRandomPairs",
     "FunctionLogger", "Iso", "IsoSimulation", "MDSimulation", "MLP",
     "MuellerBrown", "NesterovRegularized", "OpenMMSimulation",
     "SimulationData", "Stabilize", "TransformCross", "TransformGramSchmidt",
@@ -123,8 +124,9 @@ __all__ = [
     "make_generator", "mergedata", "optcontrol", "pairdist", "pairnet",
     "pairwise_aligned_rmsd", "pdists", "pickclosest", "picking",
     "picking_aligned", "propagate", "rates", "rates_resolved",
-    "resample_kde", "resample_kde_ash", "resample_strat", "residual_linear",
-    "residual_ritz", "residual_subspace", "resolve_device",
+    "resample_kde", "resample_kde_ash", "resample_strat",
+    "resample_uncertainty", "residual_linear", "residual_ritz",
+    "residual_subspace", "resolve_device",
     "restricted_localpdistinds", "run", "run_girsanov", "run_kde",
     "run_kde_dash", "save", "shiftscale", "simulationtime", "smallnet",
     "sqpairdist", "subsample", "subsample_inds", "subsample_random",

@@ -63,20 +63,46 @@ from . import targets as T
 GRAPH_WARMUP = 3
 
 
-class _StepGraph:
-    """One optimizer step of ``iso`` (``Iso._eager_step``) captured as a
-    CUDA graph over static copies of its inputs.  The graph holds the
-    model's parameters, their gradients and the optimiser's state by
-    address; the caller copies each step's inputs in and takes a copy of
-    the loss out."""
+def pad_bursts(ys, cap):
+    """The bursts, and their Girsanov weights, padded to ``cap`` rows."""
+    if isinstance(ys, WeightedSamples):
+        return WeightedSamples(pad_rows(ys.values, cap),
+                               pad_rows(ys.weights, cap))
+    return pad_rows(ys, cap)
 
-    def __init__(self, iso, x, y, w, m):
+
+@torch.no_grad()
+def fused_target(model, transform, ys, mask, n_true):
+    """An iteration's target and loss weights under a fused transform:
+    ``transform`` of ``model``'s Koopman expectation over the padded bursts
+    ``ys``, and for d > 1 each output weighted by 1 / (std + 1e-12) over
+    the real rows (the masked std, ddof 0), else ones.  A model with a
+    leading member axis gives (E, cap, d) targets and (E, 1, d) weights;
+    one without, (cap, d) and (1, d)."""
+    target = transform(expectation(model, ys))
+    if target.shape[-1] == 1:
+        return target, torch.ones(target.shape[:-2] + (1, 1),
+                                  device=target.device)
+    m = mask[:, None]
+    mu = torch.sum(target * m, dim=-2, keepdim=True) / n_true
+    var = torch.sum((target - mu) ** 2 * m, dim=-2, keepdim=True) / n_true
+    return target, 1.0 / (torch.sqrt(var) + 1e-12)
+
+
+class _StepGraph:
+    """One optimizer step of a ``GraphedSteps`` learner (its
+    ``_eager_step``) captured as a CUDA graph over static copies of its
+    inputs.  The graph holds the model's parameters, their gradients and
+    the optimiser's state by address; the caller copies each step's
+    inputs in and takes a copy of the loss out."""
+
+    def __init__(self, learner, x, y, w, m):
         self.x, self.y, self.w, self.m = (t.clone() for t in (x, y, w, m))
         self.norm = torch.ones((), device=x.device)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=iso._stream):
-            self.loss = iso._eager_step(self.x, self.y, self.w, self.m,
-                                        self.norm)
+        with torch.cuda.graph(self.graph, stream=learner._stream):
+            self.loss = learner._eager_step(self.x, self.y, self.w, self.m,
+                                            self.norm)
 
     def __call__(self, x, y, w, m, norm):
         for dst, src in ((self.x, x), (self.y, y), (self.w, w),
@@ -85,6 +111,52 @@ class _StepGraph:
         self.norm.fill_(norm)
         self.graph.replay()
         return self.loss.clone()
+
+
+class GraphedSteps:
+    """Optimizer steps replayed from a CUDA graph on the card: the base of
+    ``Iso`` and ``ensemble.ChiEnsemble``, which define
+    ``_eager_step(x, y, w, m, norm)`` (one step on their model and
+    optimiser, returning the detached loss) and call ``_step``."""
+
+    def _init_graph(self):
+        self._graph = self._graph_key = self._stream = None
+        self._warm = (None, 0)
+
+    def _step(self, x, y, w, m, norm):
+        """One optimizer step on the minibatch (x, y), loss weights w, row
+        weights m and normalizer norm.  On the card, the first
+        ``GRAPH_WARMUP`` steps of an input shape run eagerly on a side
+        stream (the first creates the optimiser's state); the next is
+        captured as a CUDA graph (``_StepGraph``) that replays every later
+        step of that shape: the same kernels on the same tensors, with a
+        few launches in place of an eager step's ~100.  One graph is kept
+        (a run has one shape; the shape changes as the data grows)."""
+        if not x.is_cuda:
+            return self._eager_step(x, y, w, m, norm)
+        key = (tuple(x.shape), tuple(y.shape), tuple(w.shape))
+        if self._graph is None or self._graph_key != key:
+            if self._warm[0] != key:
+                self._graph, self._warm = None, (key, 0)
+            if self._warm[1] < GRAPH_WARMUP:
+                self._warm = (key, self._warm[1] + 1)
+                return self._on_stream(self._eager_step, x, y, w, m, norm)
+            self._graph, self._graph_key = _StepGraph(self, x, y, w, m), key
+        return self._graph(x, y, w, m, norm)
+
+    def _on_stream(self, fn, *args):
+        """``fn(*args)`` on the capture stream, ordered after and before the
+        current stream's work."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=args[0].device)
+        cur = torch.cuda.current_stream(self._stream.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream), warnings.catch_warnings():
+            # a capturable Adam warns when it steps outside a capture
+            warnings.filterwarnings("ignore", message=".*capturable=True.*")
+            out = fn(*args)
+        cur.wait_stream(self._stream)
+        return out
 
 
 # ==========================================================================
@@ -163,7 +235,7 @@ def validationloss(iso, valdata):
     return float(np.mean((c - skc) ** 2))
 
 
-class Iso:
+class Iso(GraphedSteps):
     """Model + optimiser + data + target transform + training loop.
 
     ``Iso(data)`` or ``Iso(sim=sim, nx=100, nk=5)``; then ``run(n)``.
@@ -201,8 +273,7 @@ class Iso:
         self.loggers = list(loggers) if loggers else []
         if validation is not None:
             self.loggers.append(ValidationLossLogger(data=validation))
-        self._graph = self._graph_key = self._stream = None
-        self._warm = (None, 0)
+        self._init_graph()
 
     # ---- evaluation -------------------------------------------------------
 
@@ -339,26 +410,14 @@ class Iso:
     def _run_fused(self, n, epochs):
         """n iterations of a fused target; returns the device losses."""
         xs, mask, n_true, cap, bs, nb = self._padded()
-        ys = self.data.propfeatures
-        if isinstance(ys, WeightedSamples):
-            ys = WeightedSamples(pad_rows(ys.values, cap),
-                                 pad_rows(ys.weights, cap))
-        else:
-            ys = pad_rows(ys, cap)
-        d = self.model.outputdim
+        ys = pad_bursts(self.data.propfeatures, cap)
+
+        def transform(kchi):
+            return self.target.fused_target(kchi, mask, n_true)
+
         losses = []
         for _ in range(n):
-            with torch.no_grad():
-                kchi = expectation(self.model, ys)
-                target = self.target.fused_target(kchi, mask, n_true)
-                if d > 1:
-                    # masked std: over the real rows only
-                    m = mask[:, None]
-                    mu = torch.sum(target * m, dim=0) / n_true
-                    var = torch.sum((target - mu) ** 2 * m, dim=0) / n_true
-                    w = 1.0 / (torch.sqrt(var) + 1e-12)
-                else:
-                    w = torch.ones(1, device=xs.device)
+            target, w = fused_target(self.model, transform, ys, mask, n_true)
             for _ in range(epochs):
                 losses.append(self._epoch(xs, target, w, mask, n_true, cap,
                                           bs, nb))
@@ -384,41 +443,6 @@ class Iso:
         loss.backward()
         self.optimizer.step()
         return loss.detach()
-
-    def _step(self, x, y, w, m, norm):
-        """One optimizer step on the minibatch (x, y), loss weights w, row
-        weights m and normalizer norm.  On the card, the first
-        ``GRAPH_WARMUP`` steps of an input shape run eagerly on a side
-        stream (the first creates the optimiser's state); the next is
-        captured as a CUDA graph (``_StepGraph``) that replays every later
-        step of that shape: the same kernels on the same tensors, with a
-        few launches in place of an eager step's ~100.  One graph is kept
-        (a run has one shape; the shape changes as the data grows)."""
-        if not x.is_cuda:
-            return self._eager_step(x, y, w, m, norm)
-        key = (tuple(x.shape), tuple(y.shape), tuple(w.shape))
-        if self._graph is None or self._graph_key != key:
-            if self._warm[0] != key:
-                self._graph, self._warm = None, (key, 0)
-            if self._warm[1] < GRAPH_WARMUP:
-                self._warm = (key, self._warm[1] + 1)
-                return self._on_stream(self._eager_step, x, y, w, m, norm)
-            self._graph, self._graph_key = _StepGraph(self, x, y, w, m), key
-        return self._graph(x, y, w, m, norm)
-
-    def _on_stream(self, fn, *args):
-        """``fn(*args)`` on the capture stream, ordered after and before the
-        current stream's work."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device=args[0].device)
-        cur = torch.cuda.current_stream(self._stream.device)
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream), warnings.catch_warnings():
-            # a capturable Adam warns when it steps outside a capture
-            warnings.filterwarnings("ignore", message=".*capturable=True.*")
-            out = fn(*args)
-        cur.wait_stream(self._stream)
-        return out
 
     def _epoch(self, xs, target, w, mask, n_true, cap, bs, nb):
         if nb == 1 and bs == cap:

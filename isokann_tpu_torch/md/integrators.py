@@ -2,14 +2,16 @@
 
 Counterpart of ``isokann_tpu/md/integrators.py``: ``maxwell_boltzmann``,
 the OpenMM LangevinMiddle scheme, the Girsanov-weighted ABOBA scheme
-(``aboba_girsanov``) over any force and bias function, overdamped
-Euler-Maruyama (``brownian``) and its Girsanov-weighted form
-(``brownian_girsanov``, the toy diffusions' biased bursts), and the
-chi-derived optimal-control bias (``optcontrol``).  Small vacuum systems
-integrate in the hand-written kernels of ``langevin_kernel.py`` and
-``girsanov_kernel.py``; larger ones run these recursions over a kernel's
-forces, with rigid-water constraints where the system has them
-(``md.constraints``).
+(``aboba_girsanov``) over any force and bias function, with rigid-water
+constraints where given, naive underdamped Euler-Maruyama
+(``langevin_em``), overdamped Euler-Maruyama (``brownian``) and its
+Girsanov-weighted form (``brownian_girsanov``, the toy diffusions'
+biased bursts), and the chi-derived optimal-control bias
+(``optcontrol``, or ``optcontrol_bias`` for given fit values).  Small
+vacuum systems integrate in the hand-written kernels of
+``langevin_kernel.py`` and ``girsanov_kernel.py``; larger ones run these
+recursions over a kernel's forces, with rigid-water constraints where
+the system has them (``md.constraints``).
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
 explicit ``torch.Generator``: LangevinMiddle draws on the generator's
@@ -114,10 +116,37 @@ def constants(masses3, T, gamma, overdamped: bool):
     return torch.sqrt(2 * KB * T * gamma * masses3)
 
 
-def _brownian_noise(gen, x):
+def _normals(gen, x):
+    """Standard normals of ``x``'s shape, dtype and device from ``gen``
+    (zeros for ``gen=None``): the noise of every recursion below but
+    LangevinMiddle."""
     return (torch.randn(x.shape, generator=gen, dtype=x.dtype,
                         device=x.device)
             if gen is not None else torch.zeros_like(x))
+
+
+def langevin_em(force_fn: Callable, x0, v0, masses3, T, gamma, dt,
+                nsteps: int, gen: Optional[torch.Generator] = None,
+                perturbation: Optional[Callable] = None):
+    """Naive underdamped Euler-Maruyama (the reference's
+    ``integrate_langevin``):
+
+        v += ((F + P(x) - gamma m v) dt + sqrt(2 gamma kB T dt m) R) / m
+        x += v dt
+
+    with an optional force ``perturbation`` P.  R is drawn from ``gen`` on
+    the walkers' device; ``gen=None`` runs the noiseless recursion.
+    Returns (x, v)."""
+    amp = torch.sqrt(2 * gamma * KB * T * dt * masses3)
+    x, v = x0, v0
+    for _ in range(int(nsteps)):
+        f = force_fn(x)
+        if perturbation is not None:
+            f = f + perturbation(x)
+        v = v + ((f - gamma * masses3 * v) * dt
+                 + amp * _normals(gen, x)) / masses3
+        x = x + v * dt
+    return x, v
 
 
 def brownian(force_fn: Callable, x0, masses3, T, gamma, dt, nsteps: int,
@@ -130,8 +159,7 @@ def brownian(force_fn: Callable, x0, masses3, T, gamma, dt, nsteps: int,
     x = x0
     for _ in range(int(nsteps)):
         f = force_fn(x)
-        x = x + f / (gamma * masses3) * dt + sig * sqdt * _brownian_noise(
-            gen, x)
+        x = x + f / (gamma * masses3) * dt + sig * sqdt * _normals(gen, x)
     return x
 
 
@@ -156,7 +184,7 @@ def brownian_girsanov(force_fn: Callable, bias_fn: Callable, x0, masses3,
         u = bias_fn(x, t=t, sigma=sig, F=f)
         if not sigmascaled:
             u = u / sig
-        db = _brownian_noise(gen, x) * sqdt
+        db = _normals(gen, x) * sqdt
         x = x + (f / (gamma * masses3) + sig * u) * dt + sig * db
         logw = logw - (torch.sum(u * u, dim=-1) / 2 * dt
                        + torch.sum(u * db, dim=-1))
@@ -167,7 +195,8 @@ def brownian_girsanov(force_fn: Callable, bias_fn: Callable, x0, masses3,
 def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
                    masses3, T, gamma, dt, nsteps: int,
                    gen: Optional[torch.Generator] = None,
-                   save_every: Optional[int] = None, sigmascaled=True):
+                   save_every: Optional[int] = None, sigmascaled=True,
+                   constraints=None):
     """Underdamped ABOBA with Girsanov weights over positions q and
     momenta p (B, 3N).  Per step, with d = exp(-gamma dt) and
     f = sqrt(kB T m (1 - d^2)):
@@ -179,26 +208,48 @@ def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
         q += dt/2 p/m                                    (A)
 
     ``gen=None`` runs the noiseless recursion (eta = 0); eta is drawn
-    from ``gen`` on the walkers' device.  Returns
-    (q, p, logw), or (qs, logws, (q, p, logw)) with ``save_every``."""
+    from ``gen`` on the walkers' device.
+
+    With ``constraints`` (a ``md.constraints.ConstraintSet``), the
+    reference's constrained variant: each half drift is SHAKEn and p is
+    recovered from the constrained displacement; the bias is projected
+    onto the constraint tangent space (RATTLE of B/m, times m) before the
+    weight increment, since the constrained dynamics realises only that
+    part of it; p is RATTLEd after the O step.  As in ``langevin_middle``
+    SHAKE works on the displacement and the positions carry their float32
+    rounding in a second float.
+
+    Returns (q, p, logw), or (qs, logws, (q, p, logw)) with
+    ``save_every``: the frames after every ``save_every`` steps, t and
+    logw running on across them."""
     sig = constants(masses3, T, gamma, overdamped=False)
     d = math.exp(-gamma * dt)
     famp = torch.sqrt(KB * T * masses3 * (1.0 - d * d))
     t2 = dt / 2.0
+
+    def drift(q, qlo, p):
+        if constraints is None:
+            return q + t2 * p / masses3, qlo, p
+        dx = constraints.shake_displacement(q, t2 * p / masses3, qlo)
+        y = dx + qlo                       # Fast2Sum, as langevin_middle
+        qn = q + y
+        return qn, y - (qn - q), dx / t2 * masses3
+
     q, p = x0, p0
+    qlo = torch.zeros_like(x0) if constraints is not None else None
     logw = torch.zeros(x0.shape[:-1], dtype=x0.dtype, device=x0.device)
     t = 0.0
     qs, logws = [], []
     for i in range(int(nsteps)):
-        eta = (torch.randn(p.shape, generator=gen, dtype=p.dtype,
-                           device=p.device)
-               if gen is not None else torch.zeros_like(p))
-        q = q + t2 * p / masses3                                     # A
+        eta = _normals(gen, p)
+        q, qlo, p = drift(q, qlo, p)                                 # A
         F = force_fn(q)
         if bias_fn is not None:
             B = bias_fn(q, t=t, sigma=sig, F=F)
             if sigmascaled:
                 B = B * sig
+            if constraints is not None:
+                B = constraints.rattle(q, B / masses3) * masses3
             deta = (d + 1.0) / famp * t2 * B
             logw = logw - (torch.sum(eta * deta, dim=-1)
                            + torch.sum(deta * deta, dim=-1) / 2)
@@ -207,7 +258,9 @@ def aboba_girsanov(force_fn: Callable, bias_fn: Optional[Callable], x0, p0,
         p = p + b                                                    # B
         p = d * p + famp * eta                                       # O
         p = p + b                                                    # B
-        q = q + t2 * p / masses3                                     # A
+        if constraints is not None:
+            p = constraints.rattle(q, p / masses3) * masses3
+        q, qlo, p = drift(q, qlo, p)                                 # A
         t += dt
         if save_every and (i + 1) % save_every == 0:
             qs.append(q)
@@ -259,8 +312,18 @@ def optcontrol(iso, forcescale=1.0):
     qrate = math.log(lam) / Tmax
     b = shift / (1.0 - lam) if abs(1.0 - lam) > 1e-12 else 0.5
 
-    featurizer = iso.data.featurizer
-    model = copy.deepcopy(iso.model).requires_grad_(False)
+    return optcontrol_bias(iso.model, iso.data.featurizer, forcescale, b,
+                           qrate, Tmax)
+
+
+def optcontrol_bias(model, featurizer, forcescale, b, qrate, Tmax):
+    """The optimal-control bias of ``optcontrol`` for given fit values:
+    ``bias(x, t, sigma, F) = forcescale sigma grad log max(psi,
+    PSI_FLOOR)``, psi = lam_t (chi - b) + b, lam_t = exp(qrate (Tmax -
+    t)), chi the first output of a frozen copy of ``model`` over
+    ``featurizer``.  The callable carries ``optcontrol_spec``, from which
+    the Girsanov kernel runs the same bias."""
+    model = copy.deepcopy(model).requires_grad_(False)
     floor = torch.tensor(PSI_FLOOR)
 
     def bias_fn(x, t, sigma, F):

@@ -205,6 +205,20 @@ def bound_ms(plan: LangevinPlan, nwalkers: int, nsteps: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def forces_bound_ms(plan: LangevinPlan, nwalkers: int):
+    """Least time on an H100 for the forces entry on ``nwalkers``
+    walkers, and what bounds it: the force field's operations
+    (``step_ops`` without the integrator's) over the FP32 peak, or x read
+    and the forces written once (plus the tables) over the memory
+    rate."""
+    r3 = ((plan.dim + 7) // 8) * 8
+    ops = (step_ops(plan) - r3 * 20) * nwalkers
+    nbytes = 2 * 4 * nwalkers * plan.dim + plan.itab.nbytes + plan.ftab.nbytes
+    t_ops, t_bytes = ops / H100_FP32_PEAK, nbytes / H100_HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 # ==========================================================================
 # Plain PyTorch version (same arithmetic as the kernel, in tensor ops)
 # ==========================================================================

@@ -35,24 +35,35 @@ systems the card does not take).  On the card the recursion draws each
 step's noise from a CUDA ``torch.Generator`` seeded from the caller's
 generator.
 
+``integrator="brownian"`` makes ``propagate`` overdamped Euler-Maruyama
+(``md.integrators.brownian``) over ``force``: on the fused route kernel
+A's forces entry at every step (its trajectory entry is LangevinMiddle
+only, as the reference's fused kernel is), retried and falling back to
+the start states as LangevinMiddle does.  Chains (``trajectory``,
+``bootstrap_data``) stay LangevinMiddle, as in the reference.
+
 With a ``bias`` (``md.integrators.optcontrol``), ``propagate`` runs
-Girsanov-weighted ABOBA and returns ``WeightedSamples``.  On the card:
+Girsanov-weighted ABOBA and returns ``WeightedSamples``:
 
-- the fused route runs the whole biased trajectory in
+- on the card's fused route, the whole biased trajectory runs in
   ``md.girsanov_kernel.aboba_girsanov`` (kernel B, any batch size) when
-  the bias's chi model is one the kernel takes, and raises for any other
-  bias;
-- the hybrid route runs the plain ABOBA recursion
-  (``md.integrators.aboba_girsanov``) over ``force_flat_hybrid`` with the
-  bias callable, as the reference's XLA biased path does: kernel D at
-  every step, and inside an ``optcontrol`` bias over all-pairs features
-  of >= 512 atoms (e.g. villin with ``FeaturesAll``) kernels C and C′
-  (``ops.pairdists_kernel``) once each per step;
-- the other routes raise.
+  the bias's chi model is one the kernel takes;
+- every other bias, route and device runs the plain ABOBA recursion
+  (``md.integrators.aboba_girsanov``) over ``force`` with the bias
+  callable, as the reference's XLA biased path does: kernel A's forces
+  entry at every step on the fused route, kernel D on the hybrid route
+  (and inside an ``optcontrol`` bias over all-pairs features of >= 512
+  atoms, e.g. villin with ``FeaturesAll``, kernels C and C′ once each
+  per step), kernel E on the neighbor route.  A constrained system runs
+  the constrained ABOBA (SHAKE on the drifts, the bias projected onto
+  the constraint tangent space, RATTLE after the O step).
 
-On the CPU the plain recursion runs with the bias callable on every
-unconstrained route.  A constrained system raises on every device.  As
-in the reference, biased walkers that diverge are not retried.
+As in the reference, biased walkers that diverge are not retried.  A
+biased ``trajectory`` is one ABOBA recursion over the saved frames
+(``WeightedSamples`` of the frames and their running weights), so a
+biased ``randx0`` returns its values; ``integrate_langevin``,
+``integrate_girsanov`` and ``langevin_girsanov`` are the reference's
+direct integrators over ``force``.
 
 ``bootstrap_data`` (the reference's dataset bootstrap, which
 ``SimulationData.from_sim`` takes for an unbiased simulation) runs
@@ -62,8 +73,8 @@ chain-major; the reference's split into a fused and a staged program
 (its v5e program limits) has no counterpart: one path with the same
 semantics.
 
-Generic bond constraints (HBonds), virtual sites (TIP4P), Ewald, a biased
-``trajectory`` and the Brownian integrator are not ported.
+Generic bond constraints (HBonds), virtual sites (TIP4P) and Ewald are
+not ported.
 """
 
 from __future__ import annotations
@@ -74,7 +85,7 @@ import numpy as np
 import torch
 
 from .._device import draw_seed, make_generator, resolve_device
-from ..data import WeightedSamples
+from ..data import WeightedSamples, values
 from ..features import FeaturesAll, default_featurizer
 from ..md import forces as F
 from ..md import gb_kernel as GB
@@ -148,6 +159,10 @@ class MDSimulation(IsoSimulation):
     - bias: optional ``bias(x, t, sigma, F) -> u`` (sigma-scaled), e.g.
       ``optcontrol(iso)``: ``propagate`` then returns Girsanov-weighted
       ``WeightedSamples``
+    - integrator: "langevin" (LangevinMiddle) or "brownian" (overdamped
+      Euler-Maruyama in ``propagate``; rigid water then stays flexible,
+      with a warning)
+    - minimize: start from the FIRE-minimized structure
     - device: where walkers live; default "cuda", raising without a GPU
     """
 
@@ -157,9 +172,13 @@ class MDSimulation(IsoSimulation):
                  addwater: bool = False, padding: float = 1.0,
                  ionic_strength: float = 0.0, rigidwater: bool = True,
                  water_model: str = "tip3p", dense_pairs="auto",
-                 bias=None, device=None):
+                 bias=None, integrator: str = "langevin",
+                 minimize: bool = False, device=None):
         self.device = resolve_device(device)
         self.bias = bias
+        if integrator not in ("langevin", "brownian"):
+            raise ValueError(f"unknown integrator {integrator!r}")
+        self.integrator = integrator
         if addwater and implicit is not None:
             raise ValueError("addwater and implicit solvent are exclusive")
         if pdb is None:
@@ -172,7 +191,8 @@ class MDSimulation(IsoSimulation):
             features=features, method=method, cutoff=cutoff,
             implicit=implicit, addwater=addwater, padding=padding,
             ionic_strength=ionic_strength, rigidwater=rigidwater,
-            water_model=water_model, dense_pairs=dense_pairs)
+            water_model=water_model, dense_pairs=dense_pairs,
+            integrator=integrator, minimize=minimize)
         self.steps = int(steps)
         self.temp = float(temp)
         self.friction = float(friction)
@@ -190,6 +210,10 @@ class MDSimulation(IsoSimulation):
                                    device=self.device)
         self.masses3 = torch.repeat_interleave(self.system.masses, 3)
         wt = water_triplets(self.structure) if rigidwater else None
+        if wt is not None and len(wt) and integrator != "langevin":
+            warnings.warn("rigid water requires the langevin integrator; "
+                          "waters stay flexible")
+            wt = None
         self.constraint_set = (ConstraintSet(self.system, water=wt)
                                if wt is not None and len(wt) else None)
         if self.constraint_set is not None and not self.system.dense_pairs:
@@ -206,6 +230,8 @@ class MDSimulation(IsoSimulation):
         self.overflows = 0     # neighbor-cell overflows seen (and regrown)
         self._x0 = torch.as_tensor(self.structure.coords.reshape(-1),
                                    dtype=torch.float32, device=self.device)
+        if minimize:
+            self._x0 = self.minimize(self._x0)
         # capacity from the float32 start coordinates, as the reference
         self.nbplan = (NB.NeighborPlan(
             self.system, x0=self._x0.cpu().numpy().reshape(-1, 3))
@@ -309,30 +335,35 @@ class MDSimulation(IsoSimulation):
                                  self.constraint_set)
 
     def _run(self, xs, nsteps, gen):
+        """An unbiased propagation of (B, 3N) walkers by the integrator."""
+        if self.integrator == "brownian":
+            return I.brownian(self.force, xs, self.masses3, self.temp,
+                              self.friction, self.step, nsteps,
+                              self._noise(gen, xs.device))
         v0 = self.random_velocities(gen, xs.shape)
         return self._integrate(xs, v0, nsteps, gen)[0]
 
+    def biased_route(self, device) -> str:
+        """How a biased propagation on ``device`` runs: "kernel" (the
+        Girsanov kernel, on the card for a bias it takes) or "recursion"
+        (the plain ABOBA recursion over ``force``)."""
+        return ("kernel" if torch.device(device).type != "cpu"
+                and self.kernel_takes_bias() else "recursion")
+
+    def _aboba(self, bias, xs, p0, nsteps, gen, **kwargs):
+        """The plain ABOBA recursion over ``force`` under ``bias``, with
+        the system's constraints."""
+        return I.aboba_girsanov(
+            self.force, bias, xs, p0, self.masses3, self.temp,
+            self.friction, self.step, nsteps, self._noise(gen, xs.device),
+            constraints=self.constraint_set, **kwargs)
+
     def _girsanov(self, xs, p0, nsteps, gen):
-        """Biased ABOBA for (B, 3N) walkers -> (q, logw): the Girsanov
-        kernel on the card's fused route (an ``optcontrol`` bias it takes,
-        else raising), the plain recursion with the bias callable on the
-        card's hybrid route and on the CPU."""
-        if self.constraint_set is not None:
-            raise NotImplementedError("biased propagation of a constrained "
-                                      "system is not ported")
-        if xs.device.type == "cpu" or self.route == "hybrid":
-            q, _, logw = I.aboba_girsanov(
-                self.force, self.bias, xs, p0,
-                self.masses3, self.temp, self.friction, self.step, nsteps,
-                self._noise(gen, xs.device))
+        """Biased ABOBA for (B, 3N) walkers -> (q, logw), by
+        ``biased_route``."""
+        if self.biased_route(xs.device) == "recursion":
+            q, _, logw = self._aboba(self.bias, xs, p0, nsteps, gen)
             return q, logw
-        if not self.kernel_takes_bias():
-            raise NotImplementedError(
-                f"no biased path on {xs.device} for this bias or system "
-                f"(route {self.route!r}): the card takes optcontrol biases "
-                f"over FeaturesAll with a sigmoid / identity MLP chi model "
-                f"on the fused route (at most {LK.MAX_ATOMS} atoms in "
-                f"vacuum) and any bias on the hybrid route")
         spec = self.bias.optcontrol_spec
         plan = GK.GirsanovPlan.for_model(self.plan, spec["model"],
                                          spec["forcescale"])
@@ -373,6 +404,7 @@ class MDSimulation(IsoSimulation):
         if self.bias is not None:
             p0 = self.random_velocities(gen, xs.shape) * self.masses3
             q, logw = self._girsanov(xs, p0, nsteps, gen)
+            self._check_cell_overflow(q[:nw])
             return WeightedSamples(q[:nw].reshape(n, nk, d),
                                    torch.exp(logw[:nw]).reshape(n, nk))
         ys = self._run(xs, nsteps, gen)[:nw]
@@ -390,6 +422,12 @@ class MDSimulation(IsoSimulation):
             ys = torch.where(bad[:, None], xs[:nw], ys)
         self._check_cell_overflow(ys)
         return ys.reshape(n, nk, d)
+
+    def _start(self, x0):
+        """(B, 3N) start walkers: ``x0`` or the default state."""
+        x0 = self._x0 if x0 is None else torch.as_tensor(
+            x0, dtype=torch.float32, device=self.device)
+        return x0.reshape(-1, self.dim)
 
     def _lagged_frames(self, x, v, nframes, steps, resample_velocities,
                        gen):
@@ -415,13 +453,20 @@ class MDSimulation(IsoSimulation):
                    gen=None):
         """(nsave, 3N) single-walker trajectory, one kernel launch (B = 1)
         per saved frame.  Stops early with a warning if it diverges.
-        Unbiased only: a biased trajectory is not ported."""
-        if self.bias is not None:
-            raise NotImplementedError("a biased trajectory is not ported")
+
+        With a bias: ``WeightedSamples`` of the saved frames and their
+        Girsanov weights, from one ABOBA recursion over ``force`` (t and
+        logw run on across the frames; momenta drawn from Maxwell-
+        Boltzmann, whatever the velocity flags say)."""
         gen = make_generator(gen)
         steps = self.steps if steps is None else int(steps)
-        x = (self._x0 if x0 is None else torch.as_tensor(
-            x0, dtype=torch.float32, device=self.device)).reshape(1, -1)
+        x = self._start(x0)
+        if self.bias is not None:
+            p0 = self.random_velocities(gen, x.shape) * self.masses3
+            qs, logws, _ = self._aboba(self.bias, x, p0, steps, gen,
+                                       save_every=saveevery)
+            self._check_cell_overflow(qs[:, 0], sample=16)
+            return WeightedSamples(qs[:, 0], torch.exp(logws[:, 0]))
         v = (self.random_velocities(gen, x.shape)
              if sample_velocities and not resample_velocities
              else torch.zeros_like(x))
@@ -471,8 +516,58 @@ class MDSimulation(IsoSimulation):
                                gen=gen)
 
     def randx0(self, n, gen=None):
-        """n start points from a lagged trajectory of the default state."""
-        return self.laggedtrajectory(n, gen=gen)
+        """n start points from a lagged trajectory of the default state
+        (with a bias, its values: the weights are dropped)."""
+        return values(self.laggedtrajectory(n, gen=gen))
+
+    # ---- direct integrators ------------------------------------------------
+
+    def integrate_langevin(self, x0=None, steps=None, perturbation=None,
+                           gen=None):
+        """Naive underdamped Euler-Maruyama (``md.integrators.langevin_em``)
+        over ``force`` from ``x0`` (default: the start state), Maxwell-
+        Boltzmann velocities, an optional force ``perturbation(x)``;
+        (B, 3N) positions after ``steps``."""
+        gen = make_generator(gen)
+        x0 = self._start(x0)
+        steps = self.steps if steps is None else int(steps)
+        v0 = self.random_velocities(gen, x0.shape)
+        x, _ = I.langevin_em(self.force, x0, v0, self.masses3, self.temp,
+                             self.friction, self.step, steps,
+                             self._noise(gen, x0.device),
+                             perturbation=perturbation)
+        return x
+
+    def integrate_girsanov(self, x0=None, steps=None, bias=None, gen=None):
+        """Overdamped Euler-Maruyama under ``bias`` (default: the
+        simulation's) with Girsanov weights
+        (``md.integrators.brownian_girsanov``); returns (x, logw)."""
+        gen = make_generator(gen)
+        bias = bias or self.bias
+        if bias is None:
+            raise ValueError("integrate_girsanov needs a bias")
+        x0 = self._start(x0)
+        steps = self.steps if steps is None else int(steps)
+        return I.brownian_girsanov(self.force, bias, x0, self.masses3,
+                                   self.temp, self.friction, self.step,
+                                   steps, self._noise(gen, x0.device))
+
+    def langevin_girsanov(self, x0=None, steps=None, bias=None, saveevery=1,
+                          sigmascaled=True, gen=None):
+        """Underdamped ABOBA with Girsanov weights from one walker
+        (default: the start state) under ``bias`` (default: the
+        simulation's, else zero); ``WeightedSamples`` of the frames saved
+        every ``saveevery`` steps."""
+        gen = make_generator(gen)
+        bias = bias or self.bias or (lambda q, t, sigma, F:
+                                     torch.zeros_like(q))
+        x = self._start(x0)[:1]
+        steps = self.steps if steps is None else int(steps)
+        p0 = self.random_velocities(gen, x.shape) * self.masses3
+        qs, logws, _ = self._aboba(bias, x, p0, steps, gen,
+                                   save_every=saveevery,
+                                   sigmascaled=sigmascaled)
+        return WeightedSamples(qs[:, 0], torch.exp(logws[:, 0]))
 
     # ---- dataset bootstrap -------------------------------------------------
 

@@ -63,7 +63,8 @@ def test_port_imports_no_jax():
         "ops.dihedrals", "features", "sample", "data", "iso",
         "simulators.mdsim", "simulators.langevin", "targets", "models",
         "analysis.msm", "goldens", "workflows", "ops.align",
-        "analysis.minimumpath", "simulators.base")} <= walked, out.stdout
+        "analysis.minimumpath", "simulators.base", "ensemble",
+        "weights")} <= walked, out.stdout
 
 
 def test_propagate_and_randx0_shapes():

@@ -449,12 +449,16 @@ def test_biased_propagate_returns_weighted_samples(trained_md):
     assert bool(torch.isfinite(ys.weights).all())
     assert bool((ys.weights > 0).all())
     assert not torch.equal(ys.weights, torch.ones(3, 2))
-    with pytest.raises(NotImplementedError):
-        sim.bias = bias
-        try:
-            sim.trajectory(steps=2)
-        finally:
-            sim.bias = None
+    # a biased trajectory: the frames and their running Girsanov weights
+    sim.bias = bias
+    try:
+        tr = sim.trajectory(steps=2, gen=5)
+    finally:
+        sim.bias = None
+    assert isinstance(tr, WeightedSamples)
+    assert tr.values.shape == (2, 66) and tr.weights.shape == (2,)
+    assert bool(torch.isfinite(tr.values).all())
+    assert bool((tr.weights > 0).all())
 
 
 def test_run_girsanov_workflow_trains(trained_md):
@@ -496,18 +500,26 @@ def test_run_kde_grows_the_data(trained_md):
     assert isinstance(iso.data.propfeatures, torch.Tensor)
 
 
-def test_biased_dispatch_raises_off_the_cpu(trained_md):
-    """Off the CPU a bias gets no plain fallback: a non-optcontrol bias
-    raises, and an optcontrol bias reaches the kernel wrapper, which
-    raises for a tensor that is not on a CUDA card; no launch counts."""
+def test_biased_dispatch_raises_off_the_cpu(trained_md, monkeypatch):
+    """Off the CPU a bias gets no plain fallback in place of a kernel: a
+    non-optcontrol bias runs the ABOBA recursion, whose force wrapper
+    (kernel A's forces entry) raises for a tensor that is not on a CUDA
+    card, and an optcontrol bias reaches the Girsanov kernel wrapper,
+    which raises the same way; no launch counts."""
     sim, iso = trained_md
     x = torch.zeros(8, 66, device="meta")
-    n0 = (GK.aboba_girsanov.launches, GK.chi_grad.launches)
+    n0 = (GK.aboba_girsanov.launches, GK.chi_grad.launches,
+          LK.forces.launches)
     sim.bias = lambda q, t, sigma, F: torch.zeros_like(q)
     try:
-        with pytest.raises(NotImplementedError):
-            sim._girsanov(x, x, 2, itt.make_generator(0))
+        assert sim.biased_route(x.device) == "recursion"
+        # the simulation's masses where the walkers are, as on a card
+        monkeypatch.setattr(sim, "masses3", sim.masses3.to(x.device))
+        with pytest.raises(NotImplementedError, match="no forces kernel"):
+            sim._girsanov(x, x, 2, None)
+        monkeypatch.undo()
         sim.bias = itt.optcontrol(iso, forcescale=0.5)
+        assert sim.biased_route(x.device) == "kernel"
         with pytest.raises(NotImplementedError):
             sim._girsanov(x, x, 2, itt.make_generator(0))
     finally:
@@ -518,7 +530,8 @@ def test_biased_dispatch_raises_off_the_cpu(trained_md):
     with pytest.raises(NotImplementedError):
         GK.aboba_girsanov(plan, iso.model, x, x, 1, 0.5, 0.0, 0.2,
                           itt.make_generator(0))
-    assert (GK.aboba_girsanov.launches, GK.chi_grad.launches) == n0
+    assert (GK.aboba_girsanov.launches, GK.chi_grad.launches,
+            LK.forces.launches) == n0
 
 
 def test_girsanov_plan_rejects_models_the_kernel_does_not_take(sim):
