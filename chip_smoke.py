@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel) and holds each against its
-plain PyTorch version on the card.  Then it drives five paths through the
+plain PyTorch version on the card.  Then it drives six paths through the
 port's entry points, and the goldens after them:
 
 - the alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline:
@@ -78,6 +78,21 @@ port's entry points, and the goldens after them:
   chis/koopman/rates: the force kernel at every MD step, and inside the
   bias at every biased step the pair-distance kernels (forward and
   gradient), which also featurize every new batch.
+
+- generic constraints, the dense route and Ewald / PME: alanine with
+  HBonds (6 walkers, one 20-step lag on the plain route) and HAngles at
+  3 fs; villin with HBonds on the hybrid route (``examples/villin.py`` at
+  ``small=True``: OBC2, 0.5 nm radius features, ``Iso(nx=8, nk=1)``, 2
+  generations of ``resample_strat(2)`` + ``resample_kde(2)`` +
+  ``run(10)``, 20-step lags): kernel D once a constrained step; solvated
+  alanine at its defaults (``examples/alanine_water.py``: 1,009 atoms,
+  ``minimize=True``, ``Iso(nx=20, nk=2)``, ``run(20)``, 10-step lags) on
+  the dense route (autograd all-pairs forces, no kernel); the JAX test's
+  PME box (1,012 atoms) on the dense and the neighbor route, held against
+  each other, kernel E's erfc sweep against its plain version and the
+  reciprocal forces against float64 on the CPU, then phase 12's peptide
+  with ``method="PME", constraints="HBonds"``: 16 walkers x 100 steps
+  through kernel E.
 
 - the alanine goldens (``tests/test_golden_md.py``): chi trained on the
   committed MSM data (1,536 x 8 bursts, 800 iterations) must correlate
@@ -185,6 +200,336 @@ def _production_tool():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+def _counted_kernels():
+    """Every kernel wrapper that counts launches."""
+    from isokann_tpu_torch.md import gb_kernel as GB
+    from isokann_tpu_torch.md import girsanov_kernel as GK
+    from isokann_tpu_torch.md import langevin_kernel as LK
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    from isokann_tpu_torch.ops import pairdists_kernel as PK
+    return (LK.langevin_middle, LK.forces, GK.aboba_girsanov, GB.gb_force,
+            NBK.neighbor_sweep, NBK.neighbor_layout, PK.sqpairdist_fwd,
+            PK.sqpairdist_bwd)
+
+
+def constraints_phase(vpdb, stamp):
+    """Generic bond constraints on the card: alanine with HBonds (the JAX
+    test's system, ``tests/test_md.py``: 6 walkers, one 20-step lag, the
+    plain route) and HAngles at 3 fs (30 steps), then villin with HBonds
+    on the hybrid route (``examples/villin.py`` at ``small=True``: OBC2,
+    0.5 nm radius features, NesterovRegularized, nx 8, nk 1, 2
+    generations of resample_strat(2) + resample_kde(2) + run(10); steps
+    cut 50 -> 20; from phase 15's minimized structure): kernel D once a
+    constrained step.  Returns D's launches and the step times."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import gb_kernel as GB
+    from isokann_tpu_torch.md.integrators import KB
+    out = {}
+    for k in _counted_kernels():
+        k.launches = 0
+    t1 = time.perf_counter()
+    csim = itt.MDSimulation(steps=20, constraints="HBonds")
+    cs = csim.constraint_set
+    require(csim.route == "plain" and cs.ngeneric == cs.ncons == 12
+            and cs.nwater == 0, "alanine HBonds: 12 constraints, plain route")
+    cgen = itt.make_generator(70)
+    ys = csim.propagate(csim.coords[None].repeat(6, 1), 1, gen=cgen)[:, 0]
+    e = csim.potential(ys)
+    e0 = float(csim.potential(csim.coords[None])[0])
+    viol = cs.max_violation(ys)
+    ebound = e0 + 3 * 1.5 * KB * 310 * csim.natoms
+    require(bool(torch.isfinite(ys).all()), "alanine HBonds: finite frames")
+    require(viol < 1e-4, "alanine HBonds held to 1e-4 nm")
+    require(bool((e < ebound).all()), "alanine HBonds: E < E0 + 4.5 kB T N")
+    hsim = itt.MDSimulation(steps=30, step=0.003, constraints="HAngles")
+    hy = hsim.propagate(hsim.coords[None], 2, gen=cgen)
+    torch.cuda.synchronize()
+    t_ala = time.perf_counter() - t1
+    require(bool(torch.isfinite(hy).all()), "alanine HAngles 3 fs: finite")
+    require(all(k.launches == 0 for k in _counted_kernels()),
+            "the constrained plain route launches no kernel")
+    print(f"  alanine HBonds: {cs.ncons} constraints in {len(cs.classes)} "
+          f"classes, 6 walkers x 20 steps: violation {viol:.2e} nm (tol "
+          f"1e-4), energies max {float(e.max()):.1f} < {ebound:.1f} kJ/mol;"
+          f" HAngles ({hsim.constraint_set.ncons} constraints, "
+          f"{len(hsim.constraint_set.classes)} classes, "
+          f"{hsim.constraint_set.iters} sweeps) 2 walkers x 30 steps of "
+          f"3 fs finite, violation "
+          f"{hsim.constraint_set.max_violation(hy):.2e} nm; "
+          f"{t_ala:.3f}s {stamp}")
+
+    t1 = time.perf_counter()
+    vsim = itt.MDSimulation(pdb=vpdb, steps=20, implicit="obc2",
+                            constraints="HBonds", features=0.5)
+    vcs = vsim.constraint_set
+    require(vsim.route == "hybrid" and vcs.ngeneric > 250
+            and vcs.nwater == 0, "villin HBonds on the hybrid route")
+    vgen = itt.make_generator(71)
+    r0 = vsim.retries
+    viso = itt.Iso(sim=vsim, nx=8, nk=1, opt=itt.NesterovRegularized(),
+                   gen=vgen)
+    torch.cuda.synchronize()
+    tv = {"Iso": time.perf_counter() - t1}
+    props = 1                       # the bootstrap's bursts
+    for g in range(2):
+        for name, fn in (("strat", lambda: viso.resample_strat(2)),
+                         ("kde", lambda: viso.resample_kde(2)),
+                         ("run", lambda: viso.run(10))):
+            t2 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            tv[f"{name}{g}"] = time.perf_counter() - t2
+        props += 2
+    vchi = viso.chis()
+    torch.cuda.synchronize()
+    t_vil = time.perf_counter() - t1
+    chains, burnin = vsim.bootstrap_chains(8)
+    lags = 8 // chains + burnin
+    want = vsim.steps * (lags + props + vsim.retries - r0)
+    d_path = GB.gb_force.launches
+    vl = np.asarray(viso.losses)
+    vviol = max(vcs.max_violation(viso.data.coords),
+                vcs.max_violation(viso.data.propcoords))
+    require(d_path == want, "villin HBonds: gb_force once a constrained "
+                            "step")
+    require(len(vl) == 20 and np.all(np.isfinite(vl)),
+            "villin HBonds: finite losses")
+    require(vviol < 1e-4, "villin HBonds held to 1e-4 nm on the data")
+    require(len(viso.data) == 16 and bool(torch.isfinite(vchi).all()),
+            "villin HBonds: the data grew by 8, finite chi")
+    require(all(k.launches == 0 for k in _counted_kernels()
+                if k is not GB.gb_force), "villin HBonds: no other kernel")
+
+    # a constrained hybrid step and kernel D alone, noiseless, B = 2 / 8
+    step_ms, d_ms = {}, {}
+    for b in (2, 8):
+        x = viso.data.coords[:b].contiguous()
+        v = vcs.rattle(x, vsim.random_velocities(itt.make_generator(72),
+                                                 x.shape))
+        step_ms[b] = cuda_ms(lambda: vsim._integrate(x, v, 4, None)) / 4
+        d_ms[b] = cuda_ms(lambda: GB.gb_force(vsim.gbplan, x), reps=20)
+    print(f"  villin HBonds ({vsim.natoms} atoms, {vcs.ncons} constraints "
+          f"in {len(vcs.classes)} classes, {viso.data.featuredim} radius "
+          f"features): Iso(nx=8, nk=1) + 2 x (resample_strat(2) + "
+          f"resample_kde(2) + run(10)) {t_vil:.3f}s ("
+          + " ".join(f"{k} {v:.3f}" for k, v in tv.items())
+          + f"); loss {vl[0]:.4f} -> "
+          f"{vl[-1]:.4f}; violation {vviol:.2e} nm (tol 1e-4); retries "
+          f"{vsim.retries - r0}; gb_force launches {d_path} (expected "
+          f"{want}: {vsim.steps} x ({lags} bootstrap lags at B={chains} + "
+          f"{props} propagations)); constrained hybrid step "
+          + ", ".join(f"B={b} {step_ms[b]:.3f} ms (gb_force {d_ms[b]:.4f} "
+                      f"ms, the rest {step_ms[b] - d_ms[b]:.3f})"
+                      for b in (2, 8)) + f" {stamp}")
+    out.update(d_launches=d_path, t_ala=t_ala, t_villin=t_vil,
+               step_ms=step_ms, d_ms=d_ms)
+    return out
+
+
+def solvated_dense_phase(stamp):
+    """The dense route on the card: ``examples/alanine_water.py`` at its
+    small depth (``addwater=True, padding=0.8, minimize=True``, nx 20, nk
+    2, run(20); steps cut 100 -> 10): 1,009 atoms, rigid waters, autograd
+    all-pairs forces (no kernel).  Returns the step times and memory."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    for k in _counted_kernels():
+        k.launches = 0
+    t1 = time.perf_counter()
+    dsim = itt.MDSimulation(addwater=True, padding=0.8, minimize=True,
+                            steps=10)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t1
+    dcs = dsim.constraint_set
+    require(dsim.natoms == 1009 and dsim.route == "dense"
+            and dsim.system.dense_pairs and dcs.nwater > 0,
+            "solvated alanine: 1,009 atoms on the dense route")
+    # device memory: the peak of each stage above what was allocated
+    # before it (the earlier phases' tensors)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    diso = itt.Iso(sim=dsim, nx=20, nk=2, gen=73)
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t1
+    path_mem = torch.cuda.max_memory_allocated() - held
+    t1 = time.perf_counter()
+    diso.run(20)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t1
+    chi = diso.chis()
+    dl = np.asarray(diso.losses)
+    viol = max(dcs.max_violation(diso.data.coords),
+               dcs.max_violation(diso.data.propcoords))
+    require(all(k.launches == 0 for k in _counted_kernels()),
+            "the dense route launches no kernel")
+    require(np.all(np.isfinite(dl)), "solvated dense: finite losses")
+    require(viol < 1e-4, "solvated dense: rigid waters held to 1e-4 nm")
+    require(bool(torch.isfinite(chi).all()) and float(chi.min()) >= 0.0
+            and float(chi.max()) <= 1.0, "solvated dense: chi in [0, 1]")
+    chains = dsim.bootstrap_chains(20)[0]
+    step_ms, mem = {}, {}
+    for b in (chains, 40, 64):
+        x = diso.data.propcoords.reshape(-1, dsim.dim)[:b].contiguous()
+        x = x.repeat(-(-b // x.shape[0]), 1)[:b].contiguous()
+        v = dcs.rattle(x, dsim.random_velocities(itt.make_generator(74),
+                                                 x.shape))
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms[b] = cuda_ms(lambda: dsim._integrate(x, v, 5, None)) / 5
+        mem[b] = torch.cuda.max_memory_allocated() - held
+    print(f"  solvated alanine, dense route: {dsim.natoms} atoms, "
+          f"{dcs.nwater} rigid waters, box {dsim.system.box} nm; "
+          f"MDSimulation (solvate + system + 500 FIRE steps) "
+          f"{t_build:.3f}s, Iso(nx=20, nk=2) {t_data:.3f}s (bootstrap "
+          f"{chains} chains at B={chains}, propagate 64 padded walkers), "
+          f"run(20) {t_train:.3f}s; loss {dl[0]:.4f} -> {dl[-1]:.4f}; chi "
+          f"[{float(chi.min()):.4f}, {float(chi.max()):.4f}]; violation "
+          f"{viol:.2e} nm; dense step "
+          + ", ".join(f"B={b} {step_ms[b]:.3f} ms (peak +"
+                      f"{mem[b] / 2 ** 30:.2f} GiB)" for b in step_ms)
+          + f"; the bootstrap and propagation's peak +"
+            f"{path_mem / 2 ** 30:.2f} GiB (over what was allocated before) "
+            f"{stamp}")
+    return dict(t_build=t_build, t_data=t_data, step_ms=step_ms, mem=mem,
+                path_mem=path_mem)
+
+
+def pme_phase(spdb, x_eq, sxs, nks, stamp):
+    """Ewald / PME on the card: the JAX test's PME box (``tests/
+    test_ewald.py``: alanine, ``padding=0.9, method="PME"``, 1,012 atoms)
+    on the dense route and, with ``dense_pairs=False``, on the neighbor
+    route (kernel E's erfc sweep + the reciprocal sum + the exceptions),
+    held against each other on 4 perturbed frames, E against its plain
+    version and the reciprocal forces against float64 on the CPU; both
+    propagated 2 lags of 3 steps at B=4; then phase 12's solvated peptide
+    with ``method="PME", constraints="HBonds"`` from phase 12's
+    equilibrated frame: its 16 walkers (``sxs`` x ``nks``), one 100-step
+    lag through E.  Returns E's launches and errors."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import ewald as EW
+    from isokann_tpu_torch.md import forces as F
+    from isokann_tpu_torch.md import neighbor as NB
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    dev = torch.device("cuda")
+    kw = dict(addwater=True, padding=0.9, steps=3, method="PME")
+    t1 = time.perf_counter()
+    pd = itt.MDSimulation(**kw)
+    pn = itt.MDSimulation(dense_pairs=False, **kw)
+    t_build = time.perf_counter() - t1
+    sysn = pn.system
+    require(pd.natoms == pn.natoms == 1012 and pd.route == "dense"
+            and pn.route == "neighbor" and sysn.method == "PME",
+            "the PME box: 1,012 atoms on the dense and neighbor routes")
+    rng = np.random.default_rng(0)
+    n = pd.natoms
+    xs = torch.as_tensor(
+        pd.coords.cpu().numpy().reshape(1, n, 3)
+        + rng.normal(scale=0.003, size=(4, n, 3)), dtype=torch.float32,
+        device=dev)
+    xb = xs.reshape(4, -1).contiguous()
+    xg = xs.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(F.nonbonded_energy(pd.system, xg).sum(), xg)
+    f_d = -g
+    f_n = (NB.force_flat_neighbor(sysn, xb, pn.nbplan).reshape(xs.shape)
+           - NB.bonded_force_sparse(sysn, xs))
+    dn = float((f_n - f_d).abs().max())
+    dn_tol = 2e-4 * float(f_d.abs().max()) + 0.5
+    alpha = sysn.ewald_alpha
+    f_k = NBK.neighbor_sweep(sysn, pn.nbplan, xb, alpha)
+    f_p = NBK.neighbor_sweep_plain(sysn, pn.nbplan, xb, alpha)
+    sweep_err = float((f_k - f_p).abs().max())
+    sweep_rel = sweep_err / float(f_p.abs().max())
+    kv, cf, q = sysn.ewald_kvecs, sysn.ewald_coefs, sysn.charges
+    f_r = EW.ewald_recip_force(kv, cf, q, xs)
+    f_r64 = EW.ewald_recip_force(kv.double().cpu(), cf.double().cpu(),
+                                 q.double().cpu(), xs.double().cpu())
+    rec_rel = float((f_r.double().cpu() - f_r64).abs().max()
+                    / f_r64.abs().max())
+    print(f"  PME box: {n} atoms, box {sysn.box} nm, cutoff {sysn.cutoff} "
+          f"nm, alpha {alpha:.4f}/nm, {kv.shape[0]} k-vectors; 4 frames: "
+          f"neighbor route (E erfc + reciprocal + exceptions) vs dense "
+          f"route max |df| {dn:.4f} (tol {dn_tol:.4f} = 2e-4 max|f| + 0.5);"
+          f" neighbor_sweep erfc vs plain max rel err {sweep_rel:.3e} (tol "
+          f"1e-5); reciprocal forces vs float64 on the CPU max rel err "
+          f"{rec_rel:.3e} (tol 1e-5) {stamp}")
+    require(dn < dn_tol, "PME: neighbor route vs dense route")
+    require(sweep_rel < 1e-5, "PME: neighbor_sweep erfc vs plain")
+    require(rec_rel < 1e-5, "PME: reciprocal forces vs float64")
+
+    for k in _counted_kernels():
+        k.launches = 0
+    pgen = itt.make_generator(75)
+    r0 = pn.retries
+    t1 = time.perf_counter()
+    ends = {}
+    for sim in (pd, pn):
+        y = sim.coords[None].repeat(4, 1)
+        for _ in range(2):
+            y = sim.propagate(y, 1, gen=pgen)[:, 0]
+        e = sim.potential(y)
+        require(bool(torch.isfinite(y).all())
+                and bool(torch.isfinite(e).all()),
+                "PME: finite frames and energies on both routes")
+        require(sim.constraint_set.max_violation(y) < 1e-4,
+                "PME: rigid waters held")
+        ends[sim.route] = e
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    e_box = NBK.neighbor_sweep.launches
+    want_box = pn.steps * (2 + pn.retries - r0)
+    require(e_box == want_box and NBK.neighbor_layout.launches == want_box,
+            "PME box: layout and sweep once a neighbor-route step")
+    require(pn.overflows == 0, "PME box: no cell overflow")
+
+    t1 = time.perf_counter()
+    psim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0,
+                            steps=100, method="PME", constraints="HBonds")
+    t_pbuild = time.perf_counter() - t1
+    pcs = psim.constraint_set
+    require(psim.natoms == 7744 and psim.route == "neighbor"
+            and pcs.nwater == 2526 and pcs.ngeneric > 0,
+            "PME peptide: 7,744 atoms, rigid waters and solute HBonds, "
+            "neighbor route")
+    psim.setcoords(x_eq)
+    n0 = NBK.neighbor_sweep.launches
+    r0 = psim.retries
+    t1 = time.perf_counter()
+    yp = psim.propagate(sxs, nks, gen=pgen)
+    torch.cuda.synchronize()
+    t_pep = time.perf_counter() - t1
+    e_pep = NBK.neighbor_sweep.launches - n0
+    want_pep = psim.steps * (1 + psim.retries - r0)
+    pviol = pcs.max_violation(yp)
+    print(f"  PME box: 2 lags x {pn.steps} steps at B=4 on both routes "
+          f"{t_prop:.3f}s (energies dense {ends['dense'].tolist()}, "
+          f"neighbor {ends['neighbor'].tolist()}), neighbor_sweep launches "
+          f"{e_box} (expected {want_box}); PME peptide with HBonds "
+          f"({psim.natoms} atoms, {pcs.ngeneric} solute constraints in "
+          f"{len(pcs.classes)} classes, {psim.system.ewald_kvecs.shape[0]} "
+          f"k-vectors; MDSimulation {t_pbuild:.3f}s): propagate "
+          f"{sxs.shape[0]}x{nks} x {psim.steps} steps {t_pep:.3f}s "
+          f"({1e3 * t_pep / psim.steps:.3f} ms/step at B="
+          f"{sxs.shape[0] * nks}); violation {pviol:.2e} nm (tol 1e-4); "
+          f"overflows {psim.overflows}; neighbor_sweep launches {e_pep} "
+          f"(expected {want_pep}) {stamp}")
+    require(bool(torch.isfinite(yp).all()), "PME peptide: finite frames")
+    require(pviol < 1e-4, "PME peptide: constraints held to 1e-4 nm")
+    require(psim.overflows == 0, "PME peptide: no cell overflow")
+    require(e_pep == want_pep
+            and NBK.neighbor_layout.launches == e_box + e_pep,
+            "PME peptide: layout and sweep once a step")
+    require(all(k.launches == 0 for k in _counted_kernels()
+                if k not in (NBK.neighbor_sweep, NBK.neighbor_layout)),
+            "the PME paths launch no other kernel")
+    return dict(e_launches=e_box + e_pep, sweep_err=sweep_err,
+                t_prop=t_prop, t_pep=t_pep, t_build=t_build + t_pbuild)
 
 
 def main():
@@ -1381,9 +1726,10 @@ def main():
           f"{xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
     require(xrel < 1e-5 and vrel < 1e-4, "noiseless hybrid vs plain path")
 
-    # kinetic temperature over the last 200 of 400 steps, B=256, the same
+    # kinetic temperature over the last 100 of 200 steps, B=256, the same
     # start and the same noise stream for both paths (1000 steps until the
-    # goldens joined the script: cut for its time limit)
+    # goldens joined the script, 400 until the constraints, dense and PME
+    # phases did: cut for its time limit)
     def kinetic_temperature(step_fn):
         x, v, temps = xg, vg, []
         for k in range(4):
@@ -1396,14 +1742,14 @@ def main():
 
     gh, gp = itt.make_generator(42), itt.make_generator(42)
     t1 = time.perf_counter()
-    temp_h = kinetic_temperature(lambda x, v: tsim._integrate(x, v, 100, gh))
+    temp_h = kinetic_temperature(lambda x, v: tsim._integrate(x, v, 50, gh))
     t_th = time.perf_counter() - t1
     t1 = time.perf_counter()
     temp_p = kinetic_temperature(lambda x, v: I.langevin_middle(
         plain_force, x, v, tsim.masses3, tsim.temp, tsim.friction,
-        tsim.step, 100, tsim._noise(gp, dev)))
+        tsim.step, 50, tsim._noise(gp, dev)))
     t_tp = time.perf_counter() - t1
-    print(f"  kinetic temperature B=256, steps 200-400: hybrid {temp_h:.2f} "
+    print(f"  kinetic temperature B=256, steps 100-200: hybrid {temp_h:.2f} "
           f"K ({t_th:.1f}s), plain force_flat {temp_p:.2f} K ({t_tp:.1f}s), "
           f"target 310 K; |diff| {abs(temp_h - temp_p) / temp_p:.3%} (tol "
           f"1%)")
@@ -1418,13 +1764,13 @@ def main():
     require(nsim.route == "hybrid", "vacuum NoCutoff trp-cage on the "
                                     "hybrid route")
     gn = itt.make_generator(44)
-    temp_n = kinetic_temperature(lambda x, v: nsim._integrate(x, v, 100, gn))
+    temp_n = kinetic_temperature(lambda x, v: nsim._integrate(x, v, 50, gn))
     ga = itt.make_generator(45)
     _, va = I.langevin_middle(sim.force, xT, vT, m3, sim.temp, sim.friction,
                               sim.step, NT, sim._noise(ga, dev))
     temp_a = float((m3 * va * va).sum(dim=1).mean() / (sim.dim * KB))
     print(f"  kinetic temperature at 2 fs: trp-cage vacuum NoCutoff "
-          f"{temp_n:.2f} K (B=256, 0.4-0.8 ps); alanine plain recursion "
+          f"{temp_n:.2f} K (B=256, 0.2-0.4 ps); alanine plain recursion "
           f"{temp_a:.2f} K (B={BT} after {NT} steps; kernel A {temp:.2f} K)")
     require(abs(temp_a - temp) / temp < 0.01,
             "alanine: plain recursion and kernel A at the same temperature")
@@ -2081,8 +2427,10 @@ def main():
                                                                     True)
         c_plain[b] = cuda_ms(lambda: PK.sqpairdist_fwd_plain(xb), reps=3)
         cb_plain[b] = cuda_ms(lambda: PK.sqpairdist_bwd_plain(xb, dp), reps=3)
+        # one timed call at B=1024 (~0.43 s each, cut for the time limit)
         c_lib[b] = cuda_ms(lambda: torch.cdist(
-            xb, xb, compute_mode="donot_use_mm_for_euclid_dist"), reps=reps)
+            xb, xb, compute_mode="donot_use_mm_for_euclid_dist"),
+            reps=reps if b < 1024 else 1)
         del dp
         for name, warm, cold, plain in (
                 ("fwd", c_ms[b], c_cold[b], c_plain[b]),
@@ -2137,6 +2485,26 @@ def main():
           f"sqpairdist fwd + bwd {c_ms[32] + cb_ms[32]:.4f} ms = "
           f"{share:.2%} of the step {stamp}")
     phase("sqpairdist_timing", t0)
+
+    # ---- 17b. constraints: generic bond constraints on the plain and
+    # hybrid routes (kernel D once a constrained villin step)
+    t0 = time.perf_counter()
+    cph = constraints_phase(vpdb, stamp)
+    phase("constraints", t0, f"alanine {cph['t_ala']:.3f}s villin "
+                             f"{cph['t_villin']:.3f}s")
+
+    # ---- 17c. solvated_dense: solvated alanine on the dense route -------
+    t0 = time.perf_counter()
+    dph = solvated_dense_phase(stamp)
+    phase("solvated_dense", t0, f"MDSimulation {dph['t_build']:.3f}s Iso "
+                                f"{dph['t_data']:.3f}s")
+
+    # ---- 17d. pme: Ewald / PME on the dense and neighbor routes ---------
+    t0 = time.perf_counter()
+    pph = pme_phase(spdb, eq[0, 0], sxs, NKS, stamp)
+    nb_err = max(nb_err, pph["sweep_err"])
+    phase("pme", t0, f"PME box 2 lags {pph['t_prop']:.3f}s PME peptide "
+                     f"{pph['t_pep']:.3f}s")
 
     # ---- 18. golden_md: the alanine acceptance bar ----------------------------
     # tests/test_golden_md.py through the port on the card: chi trained on
@@ -2296,7 +2664,7 @@ def main():
         "name": "gb_force", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/gb_force.cu",
         "replaces": "isokann_tpu/md/pallas_gb.py:501",
-        "launches": d_launches + d_prod + dv_launches,
+        "launches": d_launches + d_prod + dv_launches + cph["d_launches"],
         "max_abs_err": gb_err, "ms": d_ms[1024],
         "plain_ms": d_plain[1024], "bound_ms": d_bms, "bound_by": d_by,
         "library_ms": None,
@@ -2304,7 +2672,8 @@ def main():
         "name": "neighbor_sweep", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": e_launches + eb_launches, "max_abs_err": nb_err,
+        "launches": e_launches + eb_launches + pph["e_launches"],
+        "max_abs_err": nb_err,
         "ms": e_ms[64],
         "sweep_ms": e_alone[64], "plain_ms": e_plain[64], "bound_ms": e_bms,
         "bound_by": e_by, "library_ms": None,
@@ -2312,7 +2681,8 @@ def main():
         "name": "neighbor_layout", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": l_launches + eb_launches, "max_abs_err": lay_err,
+        "launches": l_launches + eb_launches + pph["e_launches"],
+        "max_abs_err": lay_err,
         "ms": e_prep[64],
         "plain_ms": l_plain[64],
         "bound_ms": l_bound[64], "bound_by": "bytes",

@@ -1,8 +1,10 @@
 """Batched force-field energies in PyTorch; forces by autograd.
 
-Counterpart of ``isokann_tpu/md/forces.py`` for the NoCutoff and
-reaction-field (CutoffNonPeriodic / CutoffPeriodic) methods and OBC2
-implicit solvent (``gbsa_obc2_energy``).  Energies in
+Counterpart of ``isokann_tpu/md/forces.py`` for the NoCutoff,
+reaction-field (CutoffNonPeriodic / CutoffPeriodic) and Ewald / PME
+methods (the erfc real space here, the reciprocal, self and exception
+terms from ``md/ewald.py``) and OBC2 implicit solvent
+(``gbsa_obc2_energy``).  Energies in
 kJ/mol; coordinates (..., natoms, 3) in nm; every term sums over the last
 two axes so batches need no vmap.  Systems built with
 ``dense_pairs=False`` route through the O(n) cell-list engine
@@ -15,7 +17,7 @@ import math
 
 import torch
 
-from .system import COULOMB, MDSystem
+from .system import COULOMB, EWALD, PERIODIC, MDSystem
 
 
 def _rows(x, idx):
@@ -62,10 +64,13 @@ def nonbonded_energy(sys: MDSystem, x):
     NoCutoff: plain 1/r Coulomb.  Cutoff methods: reaction-field Coulomb
     qq (1/r + k_rf r^2 - c_rf) and LJ for unscaled pairs within the
     cutoff; 1-4 pairs keep straight scaled Coulomb and LJ.  Periodic:
-    minimum image first."""
+    minimum image first.  Ewald / PME: erfc-damped Coulomb for full pairs
+    within the cutoff, the cut LJ and the scaled 1-4 LJ, plus the
+    reciprocal, self and exception energies (the 1-4 Coulomb lies in the
+    exception term, OpenMM's exception semantics)."""
     n = sys.natoms
     diff = x[:, :, None, :] - x[:, None, :, :]
-    if sys.method == "CutoffPeriodic" and sys.box is not None:
+    if sys.method in PERIODIC and sys.box is not None:
         wrap = torch.tensor(sys.box, dtype=x.dtype, device=x.device)
         diff = diff - wrap * torch.round(diff / wrap)
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
@@ -80,6 +85,21 @@ def nonbonded_energy(sys: MDSystem, x):
     if sys.method == "NoCutoff":
         e = qq * inv_r * sys.qq_scale + elj * sys.lj_scale
         return 0.5 * torch.sum(e, dim=(-1, -2))
+    if sys.method in EWALD:
+        from .ewald import (ewald_exception_energy, ewald_recip_energy,
+                            ewald_self_energy)
+        al = sys.ewald_alpha
+        within = (r < sys.cutoff).to(x.dtype)
+        full = (sys.qq_scale >= 0.999).to(x.dtype)
+        l_full = (sys.lj_scale >= 0.999).to(x.dtype)
+        l_one4 = ((sys.lj_scale > 0) & (sys.lj_scale < 0.999)).to(x.dtype)
+        e = (qq * torch.special.erfc(al * r) * inv_r * within * full
+             + elj * within * l_full + elj * sys.lj_scale * l_one4)
+        return (0.5 * torch.sum(e, dim=(-1, -2))
+                + ewald_recip_energy(sys.ewald_kvecs, sys.ewald_coefs,
+                                     sys.charges, x)
+                + ewald_self_energy(al, sys.charges)
+                + ewald_exception_energy(sys, x, al))
     rc = sys.cutoff
     krf = (1.0 / rc ** 3) * (sys.eps_rf - 1.0) / (2.0 * sys.eps_rf + 1.0)
     crf = (1.0 / rc) * (3.0 * sys.eps_rf) / (2.0 * sys.eps_rf + 1.0)

@@ -3,9 +3,11 @@ the plain pair sweep, exception corrections and sparse bonded terms.
 
 Counterpart of ``isokann_tpu/md/neighbor.py`` for the reaction-field
 ``CutoffPeriodic`` method (what the reference's "auto" rule picks for a
-boxed system).  The dense all-pairs path needs (n, n) tensors; this engine
-tiles the box into cells of at most ``C`` atoms and sweeps cell-blocked
-pairs over a precomputed stencil:
+boxed system) and for Ewald / PME (the erfc real space in the sweep, the
+reciprocal sum and the exception corrections of ``md/ewald.py``).  The
+dense all-pairs path needs (n, n) tensors; this engine tiles the box into
+cells of at most ``C`` atoms and sweeps cell-blocked pairs over a
+precomputed stencil:
 
 - ``NeighborPlan``: the reference's grid choice (its cost model and
   candidate grids, copied as they are so that plans equal the JAX
@@ -18,17 +20,19 @@ pairs over a precomputed stencil:
 - ``_sweep``: the reference's tensor sweep (energy, or forces with the
   Newton reaction through the static inverse permutation) for one walker.
 - ``_exception_terms``: the sparse 1-4 corrections; hard exclusions are
-  masked inside the sweep.
+  masked inside the sweep.  Under Ewald every exception pair also takes
+  out the reciprocal sum's erf part (OpenMM's exception semantics).
 - ``bonded_force_sparse``: analytic bonded forces by gathers, summed per
   atom in a fixed order (no atomics: the same input gives the same bits
   on the card); ``strip_rigid_water_bonded`` drops the bond and angle
   terms of rigid waters.
 - ``force_flat_neighbor``: batched forces, the sweep in
   ``md.neighbor_kernel.neighbor_sweep`` (the hand-written CUDA kernel on
-  the card, its plain version on the CPU) plus the exception corrections
-  and the bonded terms.
+  the card, with the erfc real space under Ewald; its plain version on
+  the CPU) plus the exception corrections, the reciprocal forces under
+  Ewald and the bonded terms.
 
-Ewald/PME, LJPME and a traced (NPT) box are not ported.
+LJPME and a traced (NPT) box are not ported.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ import math
 import numpy as np
 import torch
 
+from .ewald import (erfc_approx, ewald_alpha,  # noqa: F401
+                    ewald_recip_energy, ewald_recip_force, ewald_self_energy)
 from .forces import bonded_energy, dispersion_correction_energy
-from .system import COULOMB, MDSystem
+from .system import COULOMB, EWALD, PERIODIC, MDSystem
 
 WIN = 32                 # hard-exclusion window of the bitmask
 _SQRT_PI = math.sqrt(math.pi)
@@ -61,9 +67,9 @@ class NeighborPlan:
 
     def __init__(self, sys: MDSystem, x0=None, capacity: int = None,
                  margin: float = 1.5, cell_div=None, cells=None):
-        if sys.method != "CutoffPeriodic" or sys.box is None:
-            raise ValueError("neighbor engine requires CutoffPeriodic with a "
-                             "box (Ewald/PME/LJPME are not ported)")
+        if sys.method not in PERIODIC or sys.box is None:
+            raise ValueError(f"neighbor engine requires a periodic method "
+                             f"{PERIODIC} with a box, not {sys.method}")
         self.box = np.asarray(sys.box, np.float64)
         self.cutoff = float(sys.cutoff)
         if not self.cutoff < float(self.box.min()) / 2:
@@ -318,21 +324,6 @@ def _pair_terms(r2, qq, rmin, epsij, krf, crf):
     return e_lj + e_c, g_lj + g_c
 
 
-def ewald_alpha(cutoff: float, tol: float = 5e-4) -> float:
-    """Ewald splitting parameter from the direct-space tolerance (OpenMM's
-    rule: erfc(alpha rc) ~ tol at the cutoff)."""
-    return math.sqrt(-math.log(2.0 * tol)) / cutoff
-
-
-def erfc_approx(x):
-    """Abramowitz & Stegun 7.1.26 erfc (abs err < 1.5e-7) from exp, mul
-    and add only, as the kernels compute it."""
-    t = 1.0 / (1.0 + 0.3275911 * x)
-    poly = t * (0.254829592 + t * (-0.284496736 + t * (
-        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
-    return poly * torch.exp(-x * x)
-
-
 def _pair_terms_ewald(r2, qq, rmin, epsij, alpha):
     """Full-pair Ewald real-space (erfc) energy and dE/d(r^2)."""
     inv_r = torch.rsqrt(r2)
@@ -480,22 +471,27 @@ def _sum_into(x, atoms, table, vals):
 
 
 def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
-    """Sparse 1-4 corrections for (B, n, 3) walkers: subtract the full-pair
-    term the sweep added and add the target scaled straight Coulomb + LJ.
-    Hard (1-2/1-3) exclusions are masked inside the sweep and contribute
-    nothing here, so only the soft (1-4) pairs are computed.  ``box``: the
+    """Sparse exception corrections for (B, n, 3) walkers: subtract the
+    full-pair term the sweep added and add the target scaled straight
+    Coulomb + LJ.  Hard (1-2/1-3) exclusions are masked inside the sweep;
+    with the reaction field they contribute nothing here, so only the soft
+    (1-4) pairs are computed.  Under Ewald every exception pair also takes
+    out qq erf(alpha r) / r, its share of the reciprocal sum.  ``box``: the
     box lengths as a tensor on the walkers' device (a plan's), else made
     from ``sys.box``.  Returns (B, n, 3) forces or (B,) energies."""
-    soft = _per_system(sys, ("soft", str(x.device)), lambda: torch.nonzero(
-        (sys.excl_qq > 0) | (sys.excl_lj > 0))[:, 0].to(x.device))
-    if soft.shape[0] == 0:
+    ewald = sys.method in EWALD
+    rows = _per_system(sys, ("exceptions", ewald, str(x.device)),
+                       lambda: torch.nonzero(
+                           (sys.excl_qq > 0) | (sys.excl_lj > 0) | ewald
+                       )[:, 0].to(x.device))
+    if rows.shape[0] == 0:
         return (torch.zeros_like(x) if want_force
                 else torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
     if box is None:
         box = torch.tensor(sys.box, dtype=x.dtype, device=x.device)
     rc, krf, crf = _rf_consts(sys)
-    i, j = sys.excl_idx[soft, 0], sys.excl_idx[soft, 1]
-    eqq, elj = sys.excl_qq[soft], sys.excl_lj[soft]
+    i, j = sys.excl_idx[rows, 0], sys.excl_idx[rows, 1]
+    eqq, elj = sys.excl_qq[rows], sys.excl_lj[rows]
     d = x[:, i] - x[:, j]
     d = d - box * torch.round(d / box)
     r2 = torch.sum(d * d, dim=-1) + 1e-12
@@ -509,15 +505,53 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
     e_lj = epsij * (x6 * x6 - 2.0 * x6)
     g_lj = 6.0 * epsij * (x6 - x6 * x6) * inv_r2
     within = (r < rc).to(x.dtype)
-    e_full, g_full = _pair_terms(r2, qq, rmin, epsij, krf, crf)
-    if not want_force:
-        e = eqq * qq * inv_r + elj * e_lj - within * e_full
-        return torch.sum(e, dim=-1)
-    g = (eqq * qq * (-0.5 * inv_r2 * inv_r) + elj * g_lj
-         - within * g_full)
+    if ewald:
+        # per pair: + eqq qq / r (the 1-4 Coulomb), - qq erf(a r) / r (the
+        # reciprocal part), - the sweep's erfc pair (soft pairs in range),
+        # + the 1-4 LJ less the sweep's cut LJ
+        al = sys.ewald_alpha
+        soft = ((eqq > 0) | (elj > 0)).to(x.dtype)
+        erf_ar = torch.special.erf(al * r)
+        erfc_ar = 1.0 - erf_ar
+        cut = soft * within
+        if not want_force:
+            e = (qq * (eqq - erf_ar - cut * erfc_ar) * inv_r
+                 + soft * (elj - within) * e_lj)
+            return torch.sum(e, dim=-1)
+        two_a = 2.0 * al / _SQRT_PI * torch.exp(-(al * r) ** 2) * inv_r
+        dEdr = qq * (-eqq * inv_r2 - two_a + erf_ar * inv_r2
+                     + cut * (two_a + erfc_ar * inv_r2))
+        g = 0.5 * dEdr * inv_r + soft * (elj - within) * g_lj
+    else:
+        e_full, g_full = _pair_terms(r2, qq, rmin, epsij, krf, crf)
+        if not want_force:
+            e = eqq * qq * inv_r + elj * e_lj - within * e_full
+            return torch.sum(e, dim=-1)
+        g = (eqq * qq * (-0.5 * inv_r2 * inv_r) + elj * g_lj
+             - within * g_full)
     gd = (-2.0 * g)[..., None] * d
-    atoms, table = _sum_table(sys, "exceptions", (i, j), x.device)
+    atoms, table = _sum_table(sys, ("exceptions", ewald), (i, j), x.device)
     return _sum_into(x, atoms, table, torch.cat([gd, -gd], dim=1))
+
+
+def _ewald_terms(sys: MDSystem, x, want_force: bool):
+    """The reciprocal sum of (B, n, 3) walkers under Ewald: forces, or the
+    energies with the self term; zeros for other methods."""
+    if sys.method not in EWALD:
+        return (torch.zeros_like(x) if want_force
+                else torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
+    if want_force:
+        return ewald_recip_force(sys.ewald_kvecs, sys.ewald_coefs,
+                                 sys.charges, x)
+    return (ewald_recip_energy(sys.ewald_kvecs, sys.ewald_coefs,
+                               sys.charges, x)
+            + ewald_self_energy(sys.ewald_alpha, sys.charges))
+
+
+def _alpha(sys: MDSystem):
+    """The sweep's Ewald splitting parameter, None for the reaction
+    field."""
+    return sys.ewald_alpha if sys.method in EWALD else None
 
 
 def default_plan(sys, x):
@@ -529,17 +563,20 @@ def default_plan(sys, x):
 
 def neighbor_nonbonded_energy(sys: MDSystem, x, plan: NeighborPlan = None):
     """O(n) nonbonded energy of one walker ``x`` (natoms, 3); equals
-    ``forces.nonbonded_energy`` on periodic reaction-field systems."""
+    ``forces.nonbonded_energy`` on periodic systems (reaction field or
+    Ewald / PME)."""
     plan = plan or default_plan(sys, x)
-    return (_sweep(sys, plan, x, False)
-            + _exception_terms(sys, x[None], False)[0])
+    return (_sweep(sys, plan, x, False, _alpha(sys))
+            + _exception_terms(sys, x[None], False)[0]
+            + _ewald_terms(sys, x[None], False)[0])
 
 
 def neighbor_nonbonded_force(sys: MDSystem, x, plan: NeighborPlan = None):
     """O(n) analytic nonbonded forces of one walker (natoms, 3)."""
     plan = plan or default_plan(sys, x)
-    return (_sweep(sys, plan, x, True)
-            + _exception_terms(sys, x[None], True)[0])
+    return (_sweep(sys, plan, x, True, _alpha(sys))
+            + _exception_terms(sys, x[None], True)[0]
+            + _ewald_terms(sys, x[None], True)[0])
 
 
 # ==========================================================================
@@ -646,9 +683,10 @@ def force_neighbor(sys: MDSystem, x, plan: NeighborPlan = None):
 def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
                         sweep=None):
     """Batched flat-coordinate forces (..., 3N) -> (..., 3N): the pair
-    sweep in ``neighbor_kernel.neighbor_sweep`` (kernel E on the card;
-    ``sweep`` replaces it, e.g. by its plain version), plus the exception
-    corrections and the bonded terms."""
+    sweep in ``neighbor_kernel.neighbor_sweep`` (kernel E on the card, the
+    erfc real space under Ewald; ``sweep`` replaces it, e.g. by its plain
+    version), plus the exception corrections, the reciprocal forces under
+    Ewald and the bonded terms."""
     if sweep is None:
         from .neighbor_kernel import neighbor_sweep as sweep
     shape = xflat.shape
@@ -657,7 +695,8 @@ def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
         plan = default_plan(sys, xb)
     x3 = xb.reshape(xb.shape[0], sys.natoms, 3)
     box = plan.on(xb.device)["box"]
-    f = (sweep(sys, plan, xb).reshape(x3.shape)
+    f = (sweep(sys, plan, xb, _alpha(sys)).reshape(x3.shape)
          + _exception_terms(sys, x3, True, box)
+         + _ewald_terms(sys, x3, True)
          + bonded_force_sparse(sys, x3))
     return f.reshape(shape)

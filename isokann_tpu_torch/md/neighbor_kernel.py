@@ -43,8 +43,8 @@ import numpy as np
 import torch
 
 from . import langevin_kernel as LK
-from .neighbor import (_SQRT_PI, NeighborPlan, _rf_consts, erfc_approx,
-                       hard_excluded)
+from .ewald import erfc_approx
+from .neighbor import _SQRT_PI, NeighborPlan, _rf_consts, hard_excluded
 from .system import COULOMB, MDSystem
 
 MAX_FAR = 8              # far-partner table width the kernel takes

@@ -1,13 +1,15 @@
 """MDSystem: force-field parameters as tensors, and the system builder.
 
-Counterpart of ``isokann_tpu/md/system.py`` for the methods that
-``method="auto"`` picks for a small vacuum system: NoCutoff,
+Counterpart of ``isokann_tpu/md/system.py`` for the methods NoCutoff,
 CutoffNonPeriodic and CutoffPeriodic (reaction field; minimum image when
-periodic), and for OBC2 implicit solvent (``implicit="obc2"``, which
-forces NoCutoff, with the reference's element-based Born radii and
-scale factors).  The reference's dense incidence matrices were a TPU device
-(difference vectors as matmuls); the port gathers by index instead, so it
-keeps only the index tables.
+periodic), Ewald and PME (one method under two names, as in the
+reference: the erfc real space within the cutoff and the structure-factor
+reciprocal sum of ``md/ewald.py``, with OpenMM's error tolerance
+``ewald_tol``), and for OBC2 implicit solvent (``implicit="obc2"``, which
+forces NoCutoff, with the reference's element-based Born radii and scale
+factors).  LJPME is not ported.  The reference's dense incidence
+matrices were a TPU device (difference vectors as matmuls); the port
+gathers by index instead, so it keeps only the index tables.
 
 Two pair layouts, as in the reference (``dense_pairs``): the dense (n, n)
 Coulomb / LJ scale matrices for the all-pairs force paths, or, above
@@ -35,7 +37,10 @@ KCAL = 4.184                    # kJ per kcal
 COULOMB = 138.935456            # kJ mol^-1 nm e^-2  (OpenMM ONE_4PI_EPS0)
 KB = 0.00831446261815324        # kJ/mol/K
 
-METHODS = ("NoCutoff", "CutoffNonPeriodic", "CutoffPeriodic")
+METHODS = ("NoCutoff", "CutoffNonPeriodic", "CutoffPeriodic", "Ewald",
+           "PME")
+PERIODIC = ("CutoffPeriodic", "Ewald", "PME")
+EWALD = ("Ewald", "PME")
 DENSE_PAIRS_MAX = 4000   # above this, build_system(dense_pairs="auto")
                          # switches to the O(n) neighbor-engine layout
 
@@ -75,6 +80,9 @@ class MDSystem:
     excl_qq: Optional[torch.Tensor] = None    # (m,) target Coulomb scale
     excl_lj: Optional[torch.Tensor] = None    # (m,) target LJ scale
     dense_pairs: bool = True
+    ewald_kvecs: Optional[torch.Tensor] = None   # (nk, 3) [1/nm], Ewald/PME
+    ewald_coefs: Optional[torch.Tensor] = None   # (nk,) [kJ/mol per |S|^2]
+    ewald_alpha: float = 0.0    # splitting parameter [1/nm]
 
     @property
     def natoms(self):
@@ -181,7 +189,7 @@ def _dispersion_sums(rmin_half, eps):
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
                  eps_rf: float = 78.5, implicit: Optional[str] = None,
                  dispersion_correction: bool = True, dense_pairs="auto",
-                 device=None) -> MDSystem:
+                 ewald_tol: float = 5e-4, device=None) -> MDSystem:
     """MDSystem from a PDB path / PDBStructure / Topology, its tensors on
     ``device`` (the GPU unless the caller names another; with no GPU and no
     device this raises).
@@ -189,9 +197,11 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     ``method="auto"`` picks CutoffPeriodic when the PDB has a box and
     CutoffNonPeriodic otherwise, as the reference does.
     ``implicit="obc2"`` adds OBC2 GBSA implicit solvent and forces
-    NoCutoff.  ``dense_pairs``: True builds the dense (n, n) scale
-    matrices, False only the sparse exception list (forces then run
-    through the cell-list engine, which needs CutoffPeriodic), "auto"
+    NoCutoff.  ``method="Ewald"`` or ``"PME"`` (a box required) adds the
+    Ewald tables at error tolerance ``ewald_tol`` (OpenMM's
+    ewaldErrorTolerance).  ``dense_pairs``: True builds the dense (n, n)
+    scale matrices, False only the sparse exception list (forces then run
+    through the cell-list engine, which needs a periodic method), "auto"
     switches at ``DENSE_PAIRS_MAX`` atoms."""
     device = resolve_device(device)
     box = None
@@ -213,11 +223,19 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     if method == "auto":
         method = "CutoffPeriodic" if box is not None else "CutoffNonPeriodic"
     if method not in METHODS:
+        where = (" (ROADMAP Queue 1 item 7)" if method == "LJPME" else "")
         raise NotImplementedError(
-            f"nonbonded method {method!r} is not ported; supported: "
+            f"nonbonded method {method!r} is not ported{where}; supported: "
             f"{METHODS}")
-    if box is not None and method == "CutoffPeriodic":
+    if method in EWALD and box is None:
+        raise ValueError(f"method={method} requires a periodic box")
+    if box is not None and method in PERIODIC:
         cutoff = min(cutoff, 0.999 * float(min(box)) / 2)   # cutoff < box/2
+    alpha, kvecs, coefs = 0.0, np.zeros((0, 3)), np.zeros(0)
+    if method in EWALD:
+        from .ewald import ewald_alpha, ewald_kvectors
+        alpha = ewald_alpha(float(cutoff), ewald_tol)
+        kvecs, coefs = ewald_kvectors(box, alpha, ewald_tol)
 
     types = top.atom_types
     bond_idx, bond_k, bond_r0 = [], [], []
@@ -257,7 +275,7 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     rmin_half = np.array([amber.lj_params(t)[0] / 10.0 for t in types])
     eps = np.array([amber.lj_params(t)[1] * KCAL for t in types])
     use_disp = bool(dispersion_correction and box is not None
-                    and method == "CutoffPeriodic")
+                    and method in PERIODIC)
     s6, s12 = _dispersion_sums(rmin_half, eps) if use_disp else (0.0, 0.0)
     if dense_pairs == "auto":
         dense_pairs = top.natoms <= DENSE_PAIRS_MAX
@@ -289,4 +307,6 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
         use_dispersion=use_disp, disp_c6sum=s6, disp_c12sum=s12,
         implicit=implicit, excl_idx=idx(eidx, 2), excl_qq=f32(eqq),
         excl_lj=f32(elj), dense_pairs=bool(dense_pairs),
+        ewald_kvecs=f32(kvecs), ewald_coefs=f32(coefs),
+        ewald_alpha=float(alpha),
     )

@@ -4,12 +4,13 @@ Counterpart of ``isokann_tpu/simulators/mdsim.py``.  Defaults mirror the
 reference: 310 K, friction 1/ps, 2 fs steps, 100 steps per Koopman lag,
 auto cutoff method, the bundled alanine dipeptide.
 
-Unbiased LangevinMiddle propagation takes one of four force routes, as
+Unbiased LangevinMiddle propagation takes one of five force routes, as
 the reference's ``_force_fn`` / ``_pallas_eligible`` /
 ``_nb_kernel_eligible`` choose on a TPU (read "TPU" as "CUDA"):
 
-- ``"fused"``: at most 64 atoms in vacuum.  Whole trajectories in
-  ``md.langevin_kernel.langevin_middle`` (kernel A; any batch size).
+- ``"fused"``: at most 64 atoms in vacuum, without constraints or Ewald.
+  Whole trajectories in ``md.langevin_kernel.langevin_middle`` (kernel A;
+  any batch size).
 - ``"hybrid"``: 64 < atoms <= 640 with a non-periodic method (OBC2
   implicit solvent or vacuum reaction field).  The plain LangevinMiddle
   recursion (``md.integrators.langevin_middle``) over
@@ -17,23 +18,29 @@ the reference's ``_force_fn`` / ``_pallas_eligible`` /
   forces at every step, bonded forces by autograd.
 - ``"neighbor"``: a periodic system built with ``dense_pairs=False``
   (automatic above ``md.system.DENSE_PAIRS_MAX`` atoms), e.g. a peptide in
-  a TIP3P box (``addwater=True``).  The constrained recursion (rigid
-  water by SHAKE / RATTLE, ``md.constraints``) over
+  a TIP3P box (``addwater=True``).  The recursion over
   ``md.neighbor.force_flat_neighbor``: the cell-list sweep in
-  ``md.neighbor_kernel.neighbor_sweep`` (kernel E) at every step, the 1-4
-  corrections and the sparse bonded forces analytically.  After each
+  ``md.neighbor_kernel.neighbor_sweep`` (kernel E; the erfc real space
+  under Ewald / PME) at every step, the exception corrections, the
+  reciprocal sum and the sparse bonded forces analytically.  After each
   propagation a sample of frames is checked for cell overflow; an
   overflow regrows the plan and warns.
-- ``"plain"``: at most 64 atoms with OBC2, or with constraints.  The
-  recursion over autograd ``force_flat``, as the reference runs it on a
-  TPU (no kernel there).
+- ``"plain"``: at most 64 atoms with OBC2, constraints or Ewald / PME.
+  The recursion over autograd ``force_flat``, as the reference runs it on
+  a TPU (no kernel there).
+- ``"dense"``: every other system with dense pairs: periodic ones above
+  64 atoms (every Ewald / PME system among them), non-periodic ones above
+  640.  The recursion over autograd ``force_flat``, as the reference runs
+  its XLA all-pairs ``force_flat`` on a TPU (no kernel there); its
+  (B, n, n) intermediates grow as B n^2.
 
-Any other system (a dense periodic system above 64 atoms) raises
-``NotImplementedError`` on the card.  On the CPU every route runs, each
-wrapper taking its kernel's plain version (and ``force_flat`` serving the
-systems the card does not take).  On the card the recursion draws each
-step's noise from a CUDA ``torch.Generator`` seeded from the caller's
-generator.
+Every route with a constraint set (``constraints=`` and / or rigid
+water, ``md.constraints``) runs the constrained recursion: SHAKE / RATTLE
+at every step, in ``propagate``, ``trajectory``, ``bootstrap_data``,
+``randx0`` and the biased ABOBA.  On the CPU every route runs, each
+wrapper taking its kernel's plain version.  On the card the recursion
+draws each step's noise from a CUDA ``torch.Generator`` seeded from the
+caller's generator.
 
 ``integrator="brownian"`` makes ``propagate`` overdamped Euler-Maruyama
 (``md.integrators.brownian``) over ``force``: on the fused route kernel
@@ -73,8 +80,7 @@ chain-major; the reference's split into a fused and a staged program
 (its v5e program limits) has no counterpart: one path with the same
 semantics.
 
-Generic bond constraints (HBonds), virtual sites (TIP4P) and Ewald are
-not ported.
+Virtual sites (TIP4P), LJPME and a barostat are not ported.
 """
 
 from __future__ import annotations
@@ -96,7 +102,7 @@ from ..md import neighbor as NB
 from ..md.constraints import ConstraintSet
 from ..md.pdbio import read_pdb
 from ..md.solvate import solvate, water_triplets
-from ..md.system import build_system
+from ..md.system import EWALD, PERIODIC, build_system
 from .base import IsoSimulation
 
 
@@ -104,16 +110,16 @@ def force_route(system, constrained: bool = False) -> str:
     """The force route of ``system``: "fused" (kernel A), "hybrid"
     (kernel D + autograd bonded terms), "neighbor" (kernel E + analytic
     corrections and bonded terms), "plain" (autograd ``force_flat``, no
-    kernel) or "unported" (no route on the card)."""
+    kernel, at most 64 atoms) or "dense" (the same above)."""
     n = system.natoms
     if not system.dense_pairs:
         return "neighbor"
     if n <= LK.MAX_ATOMS:
-        return "fused" if system.implicit is None and not constrained \
-            else "plain"
-    if n <= GB.MAX_ATOMS and system.method != "CutoffPeriodic":
+        return ("fused" if system.implicit is None and not constrained
+                and system.method not in EWALD else "plain")
+    if n <= GB.MAX_ATOMS and system.method not in PERIODIC:
         return "hybrid"
-    return "unported"
+    return "dense"
 
 
 def solute_pairs(nsolute: int):
@@ -145,7 +151,10 @@ class MDSimulation(IsoSimulation):
       a pair list, an atom list (all pairs among them) or a callable
       such as ``FeaturesAll()``
     - method/cutoff: nonbonded method ("auto": CutoffPeriodic with a box,
-      CutoffNonPeriodic without)
+      CutoffNonPeriodic without; "Ewald" or "PME" with a box)
+    - constraints: None, "HBonds", "HAngles" or "AllBonds" (SHAKE /
+      RATTLE, ``md.constraints.ConstraintSet``; the langevin integrator
+      only)
     - implicit: None or "obc2" (OBC2 GBSA implicit solvent; forces
       NoCutoff)
     - addwater: surround the solute with a TIP3P box (``padding`` nm each
@@ -173,7 +182,7 @@ class MDSimulation(IsoSimulation):
                  ionic_strength: float = 0.0, rigidwater: bool = True,
                  water_model: str = "tip3p", dense_pairs="auto",
                  bias=None, integrator: str = "langevin",
-                 minimize: bool = False, device=None):
+                 minimize: bool = False, constraints=None, device=None):
         self.device = resolve_device(device)
         self.bias = bias
         if integrator not in ("langevin", "brownian"):
@@ -192,7 +201,8 @@ class MDSimulation(IsoSimulation):
             implicit=implicit, addwater=addwater, padding=padding,
             ionic_strength=ionic_strength, rigidwater=rigidwater,
             water_model=water_model, dense_pairs=dense_pairs,
-            integrator=integrator, minimize=minimize)
+            integrator=integrator, minimize=minimize,
+            constraints=constraints)
         self.steps = int(steps)
         self.temp = float(temp)
         self.friction = float(friction)
@@ -209,14 +219,18 @@ class MDSimulation(IsoSimulation):
                                    dense_pairs=dense_pairs,
                                    device=self.device)
         self.masses3 = torch.repeat_interleave(self.system.masses, 3)
+        if constraints is not None and integrator != "langevin":
+            raise ValueError("constraints require the langevin integrator")
         wt = water_triplets(self.structure) if rigidwater else None
-        if wt is not None and len(wt) and integrator != "langevin":
+        wt = wt if wt is not None and len(wt) else None
+        if wt is not None and integrator != "langevin":
             warnings.warn("rigid water requires the langevin integrator; "
                           "waters stay flexible")
             wt = None
-        self.constraint_set = (ConstraintSet(self.system, water=wt)
-                               if wt is not None and len(wt) else None)
-        if self.constraint_set is not None and not self.system.dense_pairs:
+        self.constraint_set = (
+            ConstraintSet(self.system, constraints, water=wt)
+            if constraints is not None or wt is not None else None)
+        if wt is not None and not self.system.dense_pairs:
             # the constraints replace the waters' bond and angle terms
             self.system = NB.strip_rigid_water_bonded(self.system, wt)
         self.route = force_route(self.system,
@@ -289,18 +303,6 @@ class MDSimulation(IsoSimulation):
 
     # ---- propagation -------------------------------------------------------
 
-    def _check_route(self, device):
-        """An "unported" system runs only on the CPU."""
-        if self.route == "unported" and device.type != "cpu":
-            raise NotImplementedError(
-                f"no {device.type} path for {self.natoms} atoms with "
-                f"{self.system.method} and dense pairs: the card runs "
-                f"langevin_middle (<= {LK.MAX_ATOMS} atoms in vacuum), "
-                f"gb_force ({LK.MAX_ATOMS} < atoms <= {GB.MAX_ATOMS}, "
-                f"non-periodic) and neighbor_sweep (the port of "
-                f"neighbor_sweep_pallas: periodic, dense_pairs=False); "
-                f"dense periodic systems are not ported")
-
     def force(self, x):
         """Forces (B, 3N) -> (B, 3N) by the system's route."""
         if self.route == "fused":
@@ -309,7 +311,6 @@ class MDSimulation(IsoSimulation):
             return GB.force_flat_hybrid(self.gbplan, x)
         if self.route == "neighbor":
             return NB.force_flat_neighbor(self.system, x, self.nbplan)
-        self._check_route(x.device)
         return F.force_flat(self.system, x)
 
     def _noise(self, gen, device):
@@ -328,7 +329,6 @@ class MDSimulation(IsoSimulation):
         else the recursion over ``self.force``."""
         if self.route == "fused":
             return LK.langevin_middle(self.plan, x, v, nsteps, gen)
-        self._check_route(x.device)
         return I.langevin_middle(self.force, x, v, self.masses3, self.temp,
                                  self.friction, self.step, nsteps,
                                  self._noise(gen, x.device),

@@ -117,5 +117,14 @@ def test_nocutoff_forces_match_jax(xs):
 
 
 def test_unported_method_raises():
-    with pytest.raises(NotImplementedError):
-        build_system(alanine_dipeptide_pdb(), method="PME", device="cpu")
+    """LJPME is not ported; Ewald and PME build, with the JAX package's
+    tables."""
+    with pytest.raises(NotImplementedError, match="LJPME"):
+        build_system(alanine_dipeptide_pdb(), method="LJPME", device="cpu")
+    for method in ("Ewald", "PME"):
+        ts = build_system(alanine_dipeptide_pdb(), method=method,
+                          device="cpu")
+        js = jax_build_system(alanine_dipeptide_pdb(), method=method)
+        assert ts.method == method and ts.ewald_alpha == js.ewald_alpha > 0
+        np.testing.assert_array_equal(ts.ewald_kvecs.numpy(),
+                                      np.asarray(js.ewald_kvecs))

@@ -111,12 +111,28 @@ def test_shake_and_rattle_match_jax(jsim, sim):
     np.testing.assert_array_equal(xs.numpy()[:, solute], x[:, solute])
 
 
-def test_unported_constraint_options_raise(sim):
-    with pytest.raises(NotImplementedError, match="HBonds"):
-        ConstraintSet(sim.system, which="HBonds")
-    trip = np.asarray([[0, 1, 2], [10, 11, 12]])
-    with pytest.raises(NotImplementedError, match="contiguous"):
-        ConstraintSet(sim.system, water=trip)
+def test_unported_constraint_options_raise(jsim, sim):
+    """HBonds and scattered waters (the generic solver) build, with the
+    JAX package's constraints and classes, and SHAKE as it does."""
+    from isokann_tpu.md.constraints import ConstraintSet as JaxCS
+    from isokann_tpu_torch.md.solvate import water_triplets
+    trip = water_triplets(sim.structure)[[0, 5, 9]]
+    x0 = _walkers(sim, 2, 0.0, 0)
+    x = x0 + np.random.default_rng(8).normal(
+        scale=0.002, size=x0.shape).astype(np.float32)
+    for which, water in (("HBonds", None), (None, trip), ("HBonds", trip)):
+        ct = ConstraintSet(sim.system, which=which, water=water)
+        cj = JaxCS(jsim.system, which, water=water)
+        assert ct.nwater == 0 and (ct.ncons, ct.ngeneric) == \
+            (cj.ncons, cj.ngeneric) > (0, 0)
+        assert [list(k) for k in ct.classes] == [
+            [int(np.flatnonzero((np.asarray(cj.idx_i) == a)
+                                & (np.asarray(cj.idx_j) == b))[0])
+             for a, b in zip(np.asarray(c[0]), np.asarray(c[1]))]
+            for c in cj._classes]
+        xs = ct.shake(torch.as_tensor(x0), torch.as_tensor(x)).numpy()
+        xs_j = np.asarray(cj.shake(jnp.asarray(x0), jnp.asarray(x)))
+        assert np.abs(xs - xs_j).max() < 1e-6
 
 
 def test_noiseless_constrained_steps_match_jax(jsim, sim):
