@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
 nvcc (one process per source, in parallel) and holds each against its
-plain PyTorch version on the card.  Then it drives six paths through the
+plain PyTorch version on the card.  Then it drives seven paths through the
 port's entry points, and the goldens after them:
 
 - the alanine-dipeptide ISOKANN quickstart (``bench.py``'s pipeline:
@@ -40,7 +40,9 @@ port's entry points, and the goldens after them:
 
 - the reference's trp-cage production loop (``tools/run_trpcage_
   production.py``): ``peptide_pdb`` builds TC5B (313 atoms) from sequence
-  and minimizes it in OBC2 implicit solvent, ``MDSimulation(steps=100,
+  and minimizes it in OBC2 implicit solvent (FIRE steps replayed from a
+  CUDA graph, held against the eager loop over 30 steps),
+  ``MDSimulation(steps=100,
   implicit="obc2")``, ``Iso(nx=5, nk=8)`` (nx cut from the reference's
   100) over 100 random-pair features, 2 generations of ``run(300)`` +
   ``resample_strat(3)`` + the 2000-point cutoff, then chis/koopman/rates:
@@ -59,8 +61,9 @@ port's entry points, and the goldens after them:
   builds AQGSAELAKVM and minimizes it (300 FIRE steps),
   ``MDSimulation(addwater=True, padding=1.0, steps=100)`` puts it in a
   TIP3P box (7,744 atoms, 2,526 rigid waters, reaction field under
-  minimum image), 4 walkers equilibrate for 200 steps, then randx0(4)
-  (400 single-walker steps from the equilibrated frame), propagate of
+  minimum image), 4 walkers equilibrate for 200 steps, then randx0's
+  lagged trajectory of 4 frames at 50-step lags (200 single-walker steps
+  from the equilibrated frame), propagate of
   16 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
   features, chis/koopman/rates, then a biased propagation of the 16
   walkers under a chi-gradient bias (constrained ABOBA): the cell-list
@@ -73,8 +76,8 @@ port's entry points, and the goldens after them:
   features=FeaturesAll())`` = 588 atoms and 172,578 pair features,
   ``Iso(nx=8, nk=4)`` (the bootstrap: 2 chains x (4 + 2 burn-in) lags
   at B=2) with the default chi model (535 M parameters),
-  ``run(100)``, ``optcontrol`` + a biased ``propagate`` of 8 x 4 walkers,
-  ``run_girsanov(generations=2, iter=50, kde=8, forcescale=0.5)``,
+  ``run(50)``, ``optcontrol`` + a biased ``propagate`` of 8 x 4 walkers,
+  ``run_girsanov(generations=1, iter=50, kde=8, forcescale=0.5)``,
   chis/koopman/rates: the force kernel at every MD step, and inside the
   bias at every biased step the pair-distance kernels (forward and
   gradient), which also featurize every new batch.
@@ -82,17 +85,33 @@ port's entry points, and the goldens after them:
 - generic constraints, the dense route and Ewald / PME: alanine with
   HBonds (6 walkers, one 20-step lag on the plain route) and HAngles at
   3 fs; villin with HBonds on the hybrid route (``examples/villin.py`` at
-  ``small=True``: OBC2, 0.5 nm radius features, ``Iso(nx=8, nk=1)``, 2
-  generations of ``resample_strat(2)`` + ``resample_kde(2)`` +
-  ``run(10)``, 20-step lags): kernel D once a constrained step; solvated
+  ``small=True``: OBC2, 0.5 nm radius features, ``Iso(nx=8, nk=1)``, one
+  generation of ``resample_strat(2)`` + ``resample_kde(2)`` +
+  ``run(10)``, 10-step lags): kernel D once a constrained step; solvated
   alanine at its defaults (``examples/alanine_water.py``: 1,009 atoms,
-  ``minimize=True``, ``Iso(nx=20, nk=2)``, ``run(20)``, 10-step lags) on
+  minimized by 250 FIRE steps, ``Iso(nx=20, nk=2)``, ``run(20)``,
+  10-step lags) on
   the dense route (autograd all-pairs forces, no kernel); the JAX test's
   PME box (1,012 atoms) on the dense and the neighbor route, held against
   each other, kernel E's erfc sweep against its plain version and the
   reciprocal forces against float64 on the CPU, then phase 12's peptide
-  with ``method="PME", constraints="HBonds"``: 16 walkers x 100 steps
+  with ``method="PME", constraints="HBonds"``: 16 walkers x 25 steps
   through kernel E.
+
+- virtual sites, the barostat, LJPME, CMAP and Verlet lists: phase 12's
+  peptide in TIP4P-Ew water (``tools/tip4p_solvated_tpu.py``: padding
+  0.85, PME, the neighbor route; 4 walkers x 100 steps through kernel E
+  with the M sites placed around every sweep, every output frame placed);
+  ``npt_langevin`` on phase 12's PME peptide with flexible waters (200
+  steps, a volume move every 20, kernel E at the box of each block, E held
+  against its plain version at boxes scaled by 0.95 and 1.04); LJPME on
+  the JAX test's box (dense against neighbor route) and on phase 12's
+  peptide (kernel E's dispersion branch against its plain version, 4
+  walkers x 100 steps); the CMAP forces of the JAX test's toy chain
+  against autograd and float64; the peptide on Verlet lists at the
+  default skin (4 walkers x 100 steps, lists rebuilt at the reference's
+  interval and whenever an atom has moved skin/2, no kernel; the plan's
+  forces against kernel E's cell route).
 
 - the alanine goldens (``tests/test_golden_md.py``): chi trained on the
   committed MSM data (1,536 x 8 bursts, 800 iterations) must correlate
@@ -137,7 +156,7 @@ from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
-TB, TSTEPS = 4, 20     # solvated temperature witness: walkers, steps
+TB, TSTEPS = 4, 10     # solvated temperature witness: walkers, steps
 HP35 = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"    # villin headpiece
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -218,9 +237,9 @@ def constraints_phase(vpdb, stamp):
     test's system, ``tests/test_md.py``: 6 walkers, one 20-step lag, the
     plain route) and HAngles at 3 fs (30 steps), then villin with HBonds
     on the hybrid route (``examples/villin.py`` at ``small=True``: OBC2,
-    0.5 nm radius features, NesterovRegularized, nx 8, nk 1, 2
-    generations of resample_strat(2) + resample_kde(2) + run(10); steps
-    cut 50 -> 20; from phase 15's minimized structure): kernel D once a
+    0.5 nm radius features, NesterovRegularized, nx 8, nk 1, one
+    generation of resample_strat(2) + resample_kde(2) + run(10); steps
+    cut 50 -> 10; from phase 15's minimized structure): kernel D once a
     constrained step.  Returns D's launches and the step times."""
     import numpy as np
     import torch
@@ -262,7 +281,7 @@ def constraints_phase(vpdb, stamp):
           f"{t_ala:.3f}s {stamp}")
 
     t1 = time.perf_counter()
-    vsim = itt.MDSimulation(pdb=vpdb, steps=20, implicit="obc2",
+    vsim = itt.MDSimulation(pdb=vpdb, steps=10, implicit="obc2",
                             constraints="HBonds", features=0.5)
     vcs = vsim.constraint_set
     require(vsim.route == "hybrid" and vcs.ngeneric > 250
@@ -274,7 +293,7 @@ def constraints_phase(vpdb, stamp):
     torch.cuda.synchronize()
     tv = {"Iso": time.perf_counter() - t1}
     props = 1                       # the bootstrap's bursts
-    for g in range(2):
+    for g in range(1):
         for name, fn in (("strat", lambda: viso.resample_strat(2)),
                          ("kde", lambda: viso.resample_kde(2)),
                          ("run", lambda: viso.run(10))):
@@ -295,11 +314,11 @@ def constraints_phase(vpdb, stamp):
                 vcs.max_violation(viso.data.propcoords))
     require(d_path == want, "villin HBonds: gb_force once a constrained "
                             "step")
-    require(len(vl) == 20 and np.all(np.isfinite(vl)),
+    require(len(vl) == 10 and np.all(np.isfinite(vl)),
             "villin HBonds: finite losses")
     require(vviol < 1e-4, "villin HBonds held to 1e-4 nm on the data")
-    require(len(viso.data) == 16 and bool(torch.isfinite(vchi).all()),
-            "villin HBonds: the data grew by 8, finite chi")
+    require(len(viso.data) == 12 and bool(torch.isfinite(vchi).all()),
+            "villin HBonds: the data grew by 4, finite chi")
     require(all(k.launches == 0 for k in _counted_kernels()
                 if k is not GB.gb_force), "villin HBonds: no other kernel")
 
@@ -313,8 +332,8 @@ def constraints_phase(vpdb, stamp):
         d_ms[b] = cuda_ms(lambda: GB.gb_force(vsim.gbplan, x), reps=20)
     print(f"  villin HBonds ({vsim.natoms} atoms, {vcs.ncons} constraints "
           f"in {len(vcs.classes)} classes, {viso.data.featuredim} radius "
-          f"features): Iso(nx=8, nk=1) + 2 x (resample_strat(2) + "
-          f"resample_kde(2) + run(10)) {t_vil:.3f}s ("
+          f"features): Iso(nx=8, nk=1) + resample_strat(2) + "
+          f"resample_kde(2) + run(10) {t_vil:.3f}s ("
           + " ".join(f"{k} {v:.3f}" for k, v in tv.items())
           + f"); loss {vl[0]:.4f} -> "
           f"{vl[-1]:.4f}; violation {vviol:.2e} nm (tol 1e-4); retries "
@@ -331,17 +350,19 @@ def constraints_phase(vpdb, stamp):
 
 def solvated_dense_phase(stamp):
     """The dense route on the card: ``examples/alanine_water.py`` at its
-    small depth (``addwater=True, padding=0.8, minimize=True``, nx 20, nk
-    2, run(20); steps cut 100 -> 10): 1,009 atoms, rigid waters, autograd
-    all-pairs forces (no kernel).  Returns the step times and memory."""
+    small depth (``addwater=True, padding=0.8``, nx 20, nk 2, run(20);
+    steps cut 100 -> 10; the example's ``minimize=True`` (500 FIRE steps)
+    cut to ``setcoords(minimize(maxiter=250))``): 1,009 atoms, rigid
+    waters, autograd all-pairs forces (no kernel).  Returns the step times
+    and memory."""
     import numpy as np
     import torch
     import isokann_tpu_torch as itt
     for k in _counted_kernels():
         k.launches = 0
     t1 = time.perf_counter()
-    dsim = itt.MDSimulation(addwater=True, padding=0.8, minimize=True,
-                            steps=10)
+    dsim = itt.MDSimulation(addwater=True, padding=0.8, steps=10)
+    dsim.setcoords(dsim.minimize(maxiter=250))
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t1
     dcs = dsim.constraint_set
@@ -384,7 +405,7 @@ def solvated_dense_phase(stamp):
         mem[b] = torch.cuda.max_memory_allocated() - held
     print(f"  solvated alanine, dense route: {dsim.natoms} atoms, "
           f"{dcs.nwater} rigid waters, box {dsim.system.box} nm; "
-          f"MDSimulation (solvate + system + 500 FIRE steps) "
+          f"MDSimulation (solvate + system) + 250 FIRE steps "
           f"{t_build:.3f}s, Iso(nx=20, nk=2) {t_data:.3f}s (bootstrap "
           f"{chains} chains at B={chains}, propagate 64 padded walkers), "
           f"run(20) {t_train:.3f}s; loss {dl[0]:.4f} -> {dl[-1]:.4f}; chi "
@@ -408,7 +429,7 @@ def pme_phase(spdb, x_eq, sxs, nks, stamp):
     version and the reciprocal forces against float64 on the CPU; both
     propagated 2 lags of 3 steps at B=4; then phase 12's solvated peptide
     with ``method="PME", constraints="HBonds"`` from phase 12's
-    equilibrated frame: its 16 walkers (``sxs`` x ``nks``), one 100-step
+    equilibrated frame: its 16 walkers (``sxs`` x ``nks``), one 25-step
     lag through E.  Returns E's launches and errors."""
     import numpy as np
     import torch
@@ -490,7 +511,7 @@ def pme_phase(spdb, x_eq, sxs, nks, stamp):
 
     t1 = time.perf_counter()
     psim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0,
-                            steps=100, method="PME", constraints="HBonds")
+                            steps=25, method="PME", constraints="HBonds")
     t_pbuild = time.perf_counter() - t1
     pcs = psim.constraint_set
     require(psim.natoms == 7744 and psim.route == "neighbor"
@@ -532,6 +553,375 @@ def pme_phase(spdb, x_eq, sxs, nks, stamp):
                 t_prop=t_prop, t_pep=t_pep, t_build=t_build + t_pbuild)
 
 
+def _frames(x, n, seed, scale=0.003):
+    """``n`` frames (n, 3N) of ``x`` (3N,) moved by normals of ``scale`` nm
+    from ``default_rng(seed)``, on ``x``'s device."""
+    import numpy as np
+    import torch
+    z = np.random.default_rng(seed).normal(scale=scale, size=(n, x.numel()))
+    return (x[None] + torch.as_tensor(z, dtype=torch.float32,
+                                      device=x.device)).contiguous()
+
+
+def _sweep_vs_plain(sys, plan, xb, alpha=None, beta=None, box=None):
+    """Kernel E against its plain version on (B, 3N) walkers: (max
+    relative error, max absolute error)."""
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    f_k = NBK.neighbor_sweep(sys, plan, xb, alpha, beta, box=box)
+    f_p = NBK.neighbor_sweep_plain(sys, plan, xb, alpha, beta, box=box)
+    err = float((f_k - f_p).abs().max())
+    return err / float(f_p.abs().max()), err
+
+
+def tip4p_phase(spdb, stamp):
+    """TIP4P-Ew water on the card: ``tools/tip4p_solvated_tpu.py``'s
+    configuration (phase 12's peptide, ``water_model="tip4pew",
+    padding=0.85, method="PME", dense_pairs=False``, 100-step lags, 4
+    walkers; one lag instead of four): one ``propagate`` through kernel E
+    with the sites placed before every sweep and their forces handed to
+    the parents; every output frame placed, the waters rigid; E against
+    its plain version on the placed frames at B=1 and B=4; the energy
+    blind to a site row and not to its O.  Returns E's launches."""
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    from isokann_tpu_torch.md.solvate import M_WEIGHTS, R_OH, water_triplets
+    for k in _counted_kernels():
+        k.launches = 0
+    t1 = time.perf_counter()
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, water_model="tip4pew",
+                           padding=0.85, steps=100, method="PME",
+                           dense_pairs=False)
+    t_build = time.perf_counter() - t1
+    sys, cs = sim.system, sim.constraint_set
+    vs = sys.vs_idx
+    nv = int(vs.shape[0])
+    print(f"  TIP4P-Ew box: {sim.natoms} atoms, {nv} M sites, {cs.nwater} "
+          f"waters (stride {cs.wstride}, {cs.ngeneric} other constraints), "
+          f"box {sys.box} nm, {sys.ewald_kvecs.shape[0]} k-vectors, plan "
+          f"grid {tuple(int(c) for c in sim.nbplan.nc)} capacity "
+          f"{sim.nbplan.C}; MDSimulation {t_build:.3f}s")
+    require(sim.route == "neighbor" and nv > 1000 and cs.nwater == nv
+            and cs.wstride == 4 and cs.ngeneric == 0,
+            "TIP4P-Ew: sites on the neighbor route, a stride-4 water block")
+    gen = itt.make_generator(80)
+    r0 = sim.retries
+    t1 = time.perf_counter()
+    y = sim.propagate(sim.coords[None].repeat(4, 1), 1, gen=gen)[:, 0]
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    e_path = NBK.neighbor_sweep.launches
+    want = sim.steps * (1 + sim.retries - r0)
+    y3 = y.reshape(4, -1, 3)
+    par = sys.vs_gather[vs]
+    w = M_WEIGHTS
+    placed = (w[0] * y3[:, par[:, 0]] + w[1] * y3[:, par[:, 1]]
+              + w[2] * y3[:, par[:, 2]])
+    m_err = float((y3[:, vs] - placed).abs().max())
+    trip = torch.as_tensor(water_triplets(sim.structure), device=y.device)
+    oh = torch.cat([torch.linalg.norm(y3[:, trip[:, 0]] - y3[:, trip[:, k]],
+                                      dim=-1) for k in (1, 2)])
+    oh_err = float((oh - R_OH).abs().max())
+    errs = {b: _sweep_vs_plain(sys, sim.nbplan, y[:b].contiguous(),
+                               sys.ewald_alpha) for b in (1, 4)}
+    x0 = y[0].reshape(-1, 3)
+    x2, x3 = x0.clone(), x0.clone()
+    x2[vs[0]] += 1.0
+    x3[par[0, 0]] += 0.05
+    e1, e2, e3 = sim.potential(torch.stack([x0, x2, x3]).reshape(3, -1)
+                               ).tolist()
+    print(f"  TIP4P-Ew propagate 4 walkers (8 padded) x {sim.steps} steps "
+          f"{t_prop:.3f}s ({1e3 * t_prop / sim.steps:.3f} ms/step); M sites "
+          f"placed within {m_err:.2e} nm (tol 2e-6), O-H {oh_err:.2e} nm "
+          f"from R_OH (tol 2e-3); overflows {sim.overflows}; E vs plain on "
+          f"the placed frames max rel err "
+          + ", ".join(f"B={b} {e[0]:.3e}" for b, e in errs.items())
+          + f" (tol 1e-5); energy {e1:.3f}, an M row moved 1 nm {e2:.3f}, "
+            f"its O moved 0.05 nm {e3:.3f} kJ/mol; neighbor_sweep launches "
+            f"{e_path} (expected {want}) {stamp}")
+    require(bool(torch.isfinite(y).all()), "TIP4P-Ew: finite frames")
+    require(m_err < 2e-6, "TIP4P-Ew: every M placed on every output frame")
+    require(oh_err < 2e-3, "TIP4P-Ew: rigid waters")
+    require(sim.overflows == 0, "TIP4P-Ew: no cell overflow")
+    require(all(e[0] < 1e-5 for e in errs.values()),
+            "TIP4P-Ew: kernel E vs plain at B=1 and B=4")
+    require(abs(e2 - e1) <= max(1e-6 * abs(e1), 1e-3) and abs(e3 - e1) > 1.0,
+            "TIP4P-Ew: the energy places the sites")
+    require(e_path == want and NBK.neighbor_layout.launches == e_path + 2,
+            "TIP4P-Ew: layout and sweep once a step")
+    return dict(e_launches=e_path, err=max(e[1] for e in errs.values()),
+                t_build=t_build, t_prop=t_prop)
+
+
+def npt_phase(spdb, x_eq, stamp):
+    """NPT on the card: phase 12's peptide with PME and flexible waters
+    (``npt_langevin`` runs no constraints, as the reference's), its
+    equilibrated frame, 200 steps of ``npt_langevin`` at ``interval=20``:
+    kernel E every step at the box of the block, a volume move every 20
+    steps (energies by the tensor sweep), no cell overflow on a block's
+    end frame and the volume inside what one plan covers; the static box
+    passed at run time against the static energy; E at boxes scaled by
+    0.95 and 1.04 against its plain version at the same boxes.  Returns
+    E's launches and its time at the path's batch (B = 1)."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import barostat as BA
+    from isokann_tpu_torch.md import neighbor as NB
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    t1 = time.perf_counter()
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100,
+                           method="PME", rigidwater=False)
+    t_build = time.perf_counter() - t1
+    sys = sim.system
+    require(sim.natoms == 7744 and sim.route == "neighbor"
+            and sim.constraint_set is None,
+            "NPT peptide: 7,744 atoms, flexible waters, the neighbor route")
+    sim.setcoords(x_eq)
+    plan = NB.NeighborPlan(sys, x0=x_eq.cpu().numpy().reshape(-1, 3),
+                           box_slack=0.1)
+    x3 = x_eq.reshape(-1, 3)
+    e0 = float(NB.potential_energy_neighbor(sys, x3, plan))
+    e1 = float(NB.potential_energy_neighbor(sys, x3, plan, box=sys.box))
+    xq = _frames(x_eq, 4, 82)
+    errs, err_abs, ms, plain_ms = {}, 0.0, {}, {}
+    for f in (0.95, 1.04):
+        box = tuple(b * f for b in sys.box)
+        xf = (xq * f).contiguous()       # the molecules' density kept
+        for b in (1, 4):
+            errs[f, b], ea = _sweep_vs_plain(sys, plan, xf[:b].contiguous(),
+                                             sys.ewald_alpha, box=box)
+            err_abs = max(err_abs, ea)
+        x1 = xf[:1].contiguous()
+        ms[f] = cuda_ms(lambda: NBK.neighbor_sweep(sys, plan, x1,
+                                                   sys.ewald_alpha, box=box),
+                        reps=20)
+        _, plain_ms[f] = timed(lambda: NBK.neighbor_sweep_plain(
+            sys, plan, x1, sys.ewald_alpha, box=box))
+    for k in _counted_kernels():
+        k.launches = 0
+    t1 = time.perf_counter()
+    xf, box_f, info = BA.npt_langevin(sim, gen=itt.make_generator(81),
+                                      steps=200, interval=20, pressure=1.0)
+    torch.cuda.synchronize()
+    t_npt = time.perf_counter() - t1
+    e_path = NBK.neighbor_sweep.launches
+    ratio = float(torch.prod(box_f)) / float(np.prod(sys.box))
+    print(f"  NPT peptide ({sim.natoms} atoms, PME, flexible waters; "
+          f"MDSimulation {t_build:.3f}s): energy at the static box "
+          f"{e0:.3f}, the same box at run time {e1:.3f} kJ/mol (tol 1e-3 + "
+          f"1e-6|E|); E vs plain at scaled boxes max rel err "
+          + ", ".join(f"x{f} B={b} {e:.3e}" for (f, b), e in errs.items())
+          + f" (tol 1e-5); E at B=1 " + ", ".join(
+              f"x{f} {ms[f]:.4f} ms (plain {plain_ms[f]:.3f} ms)"
+              for f in ms)
+          + f"; npt_langevin 200 steps at interval 20 {t_npt:.3f}s: "
+            f"{info['attempted']} moves attempted, {info['accepted']} "
+            f"accepted, dV scale {info['dv_scale']:.4f} nm^3, volume x"
+            f"{ratio:.4f}, box {[round(b, 4) for b in box_f.tolist()]} nm, "
+            f"cell overflow on the blocks' end frames {info['overflow']}, "
+            f"plan rebuilds {info['replans']}; neighbor_sweep launches "
+            f"{e_path} (expected 200) {stamp}")
+    require(abs(e0 - e1) < 1e-3 + 1e-6 * abs(e0),
+            "NPT: the static box at run time gives the static energy")
+    require(all(e < 1e-5 for e in errs.values()),
+            "NPT: kernel E vs plain at scaled boxes")
+    require(bool(torch.isfinite(xf).all()), "NPT: finite frame")
+    require(info["attempted"] == 10, "NPT: 10 moves attempted")
+    require(info["overflow"] == 0, "NPT: no cell overflow")
+    # a plan is valid down to (1 - box_slack) of its box, 0.1 here
+    require(0.9 ** 3 < ratio < 2.0, "NPT: the volume within 0.729-2x")
+    require(e_path == 200 and NBK.neighbor_layout.launches == 200,
+            "NPT: layout and sweep once a step")
+    require(all(k.launches == 0 for k in _counted_kernels()
+                if k not in (NBK.neighbor_sweep, NBK.neighbor_layout)),
+            "NPT launches no other kernel")
+    return dict(e_launches=e_path, err=err_abs, ms=ms[0.95],
+                plain_ms=plain_ms[0.95], t_npt=t_npt)
+
+
+def ljpme_phase(spdb, x_eq, stamp):
+    """LJPME on the card: the JAX test's LJPME box (``tests/test_ljpme.py``:
+    alanine, padding 0.62) on the dense route and, with ``dense_pairs=
+    False``, on the neighbor route, held against each other; phase 12's
+    peptide with ``method="LJPME"``: kernel E's dispersion branch against
+    its plain version at B=1 and B=4, its time and bound, and one 100-step
+    lag of 4 walkers from the equilibrated frame.  Returns E's launches,
+    error, times and bound."""
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import forces as F
+    from isokann_tpu_torch.md import neighbor as NB
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    kw = dict(addwater=True, padding=0.62, method="LJPME")
+    ld = itt.MDSimulation(**kw)
+    ln = itt.MDSimulation(dense_pairs=False, **kw)
+    require(ld.route == "dense" and ln.route == "neighbor"
+            and ln.system.method == "LJPME" and not ln.system.use_dispersion,
+            "the LJPME box on the dense and neighbor routes")
+    x = ld.coords.reshape(-1, 3)
+    e_d = float(F.nonbonded_energy(ld.system, x[None])[0])
+    e_n = float(NB.neighbor_nonbonded_energy(ln.system, x, ln.nbplan))
+    print(f"  LJPME box ({ld.natoms} atoms, beta {ln.system.ljpme_beta:.4f}"
+          f"/nm): nonbonded energy dense {e_d:.3f}, neighbor {e_n:.3f} "
+          f"kJ/mol (tol 0.2 + 2e-4|E|) {stamp}")
+    require(abs(e_n - e_d) < 0.2 + 2e-4 * abs(e_d),
+            "LJPME: neighbor route vs dense route")
+
+    t1 = time.perf_counter()
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100,
+                           method="LJPME")
+    t_build = time.perf_counter() - t1
+    sys, plan = sim.system, sim.nbplan
+    require(sim.natoms == 7744 and sim.route == "neighbor"
+            and sim.constraint_set.nwater == 2526,
+            "LJPME peptide: 7,744 atoms, rigid waters, the neighbor route")
+    sim.setcoords(x_eq)
+    alpha, beta = NB._alpha(sys), NB._beta(sys)
+    xq = _frames(x_eq, 8, 83)
+    errs = {b: _sweep_vs_plain(sys, plan, xq[:b].contiguous(), alpha, beta)
+            for b in (1, 4)}
+    ms = {b: cuda_ms(lambda: NBK.neighbor_sweep(
+        sys, plan, xq[:b].contiguous(), alpha, beta), reps=10)
+        for b in (1, 8)}
+    ms_erfc = cuda_ms(lambda: NBK.neighbor_sweep(sys, plan, xq, alpha),
+                      reps=10)
+    _, plain_ms = timed(lambda: NBK.neighbor_sweep_plain(
+        sys, plan, xq[:1].contiguous(), alpha, beta))
+    in_range = NBK.pair_counts(sys, plan, xq[:1])[0]
+    bms, by = NBK.bound_ms(plan, 8, 8 * in_range, alpha, beta)
+    for k in _counted_kernels():
+        k.launches = 0
+    gen = itt.make_generator(84)
+    r0 = sim.retries
+    t1 = time.perf_counter()
+    y = sim.propagate(x_eq[None], 4, gen=gen)[0]
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    e_path = NBK.neighbor_sweep.launches
+    want = sim.steps * (1 + sim.retries - r0)
+    viol = sim.constraint_set.max_violation(y)
+    print(f"  LJPME peptide ({sim.natoms} atoms; MDSimulation "
+          f"{t_build:.3f}s): E's dispersion branch vs plain max rel err "
+          + ", ".join(f"B={b} {e[0]:.3e}" for b, e in errs.items())
+          + f" (tol 1e-5); E with the branch B=1 {ms[1]:.4f} ms, B=8 "
+            f"{ms[8]:.4f} ms (without it, erfc only, B=8 {ms_erfc:.4f} ms; "
+            f"plain B=1 {plain_ms:.3f} ms; bound at B=8 {bms:.4f} ms, {by}, "
+            f"{in_range} pairs in cutoff a walker); propagate 4 walkers (8 "
+            f"padded) x {sim.steps} steps {t_prop:.3f}s "
+            f"({1e3 * t_prop / sim.steps:.3f} ms/step); violation "
+            f"{viol:.2e} nm; overflows {sim.overflows}; neighbor_sweep "
+            f"launches {e_path} (expected {want}) {stamp}")
+    require(all(e[0] < 1e-5 for e in errs.values()),
+            "LJPME: kernel E's dispersion branch vs plain")
+    require(bool(torch.isfinite(y).all()) and viol < 1e-4,
+            "LJPME peptide: finite frames, rigid waters")
+    require(sim.overflows == 0, "LJPME peptide: no cell overflow")
+    require(e_path == want and NBK.neighbor_layout.launches == want,
+            "LJPME peptide: layout and sweep once a step")
+    return dict(e_launches=e_path, err=max(e[1] for e in errs.values()),
+                ms=ms[8], ms1=ms[1], plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, t_prop=t_prop)
+
+
+def cmap_verlet_phase(spdb, x_eq, stamp):
+    """CMAP and Verlet lists on the card: the CMAP forces of the JAX test's
+    toy chain (``tests/test_cmap.py``) against autograd and against
+    float64 on the CPU; phase 12's peptide with ``neighbor_mode="verlet"``
+    at the default skin: one 100-step lag of 4 walkers on the lists (no
+    kernel: the reference's Verlet path is XLA), then the forces from
+    the plan it built against kernel E's cell route (1e-5 of max|f|,
+    ``tests/test_verlet.py``).  Returns the Verlet times."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import cmap as CM
+    from isokann_tpu_torch.md import neighbor as NB
+    from isokann_tpu_torch.md.system import system_from_tables
+    from isokann_tpu_torch.md.verlet import build_lists, force_verlet
+    R = 24
+    ang = -np.pi + 2 * np.pi * np.arange(R) / R
+    P, S = np.meshgrid(ang, ang, indexing="ij")
+    grid = 2.0 * np.cos(P) * np.sin(S)
+    csys = system_from_tables(
+        masses=[12.0] * 5, charges=[0.0] * 5, rmin_half=[0.0] * 5,
+        eps=[0.0] * 5, bond_idx=[(i, i + 1) for i in range(4)],
+        bond_k=[1e4] * 4, bond_r0=[0.15] * 4,
+        excl_idx=[(i, j) for i in range(5) for j in range(i + 1, 5)],
+        excl_qq=[0.0] * 10, excl_lj=[0.0] * 10,
+        cmap_idx=[[0, 1, 2, 3, 1, 2, 3, 4]], cmap_type=[0],
+        cmap_grids=[grid], method="NoCutoff")
+    zig = np.array([[0.0, 0.0, 0.0], [0.15, 0.0, 0.0], [0.2, 0.14, 0.0],
+                    [0.35, 0.15, 0.05], [0.4, 0.28, 0.12]])
+    xs = torch.as_tensor(zig[None] + np.random.default_rng(85).normal(
+        scale=0.02, size=(16, 5, 3)), dtype=torch.float32,
+        device=x_eq.device)
+    fc = CM.cmap_force(csys, xs)
+    xg = xs.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(CM.cmap_energy(csys, xg).sum(), xg)
+    c64 = csys.replace(cmap_coefs=csys.cmap_coefs.double().cpu(),
+                       cmap_idx=csys.cmap_idx.cpu(),
+                       cmap_type=csys.cmap_type.cpu())
+    f64 = CM.cmap_force(c64, xs.double().cpu())
+    scale = float(f64.abs().max())
+    rel_ag = float((fc + g).abs().max()) / scale
+    rel_64 = float((fc.double().cpu() - f64).abs().max()) / scale
+    print(f"  CMAP toy chain, 16 frames: analytic forces vs autograd max rel "
+          f"err {rel_ag:.3e}, vs float64 on the CPU {rel_64:.3e} (tol 1e-5); "
+          f"energies {CM.cmap_energy(csys, xs)[:3].tolist()} {stamp}")
+    require(rel_ag < 1e-5 and rel_64 < 1e-5, "CMAP forces")
+
+    t1 = time.perf_counter()
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100,
+                           neighbor_mode="verlet")
+    sim.setcoords(x_eq)
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t1
+    for k in _counted_kernels():
+        k.launches = 0
+    gen = itt.make_generator(86)
+    t1 = time.perf_counter()
+    y = sim.propagate(x_eq[None], 4, gen=gen)[0]
+    torch.cuda.synchronize()
+    t_prop = time.perf_counter() - t1
+    launched = sum(k.launches for k in _counted_kernels())
+    d = sim.verlet_diag
+    viol = sim.constraint_set.max_violation(y)
+    # the plan the propagation built and used, held against E's cell route
+    sys, vp = sim.system, sim.vplan
+    box = torch.as_tensor(sys.box, dtype=torch.float32, device=x_eq.device)
+    x3 = x_eq.reshape(1, -1, 3)
+    t1 = time.perf_counter()
+    lists, n_over = build_lists(vp, sys, x3 - box * torch.floor(x3 / box))
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t1
+    f_v = force_verlet(sys, x3, lists).reshape(1, -1)
+    f_c = NB.force_flat_neighbor(sys, x_eq[None], sim.nbplan)
+    rel = float((f_v - f_c).abs().max() / f_c.abs().max())
+    periodic = -(-sim.steps // vp.rebuild_every)
+    print(f"  Verlet lists on the peptide ({sim.natoms} atoms, skin "
+          f"{vp.skin} nm, K {vp.K}, {vp.M} candidates an atom, rebuilt every "
+          f"{vp.rebuild_every} steps and when an atom moved skin/2; "
+          f"MDSimulation {t_sim:.3f}s, one build {t_list:.3f}s, overflow "
+          f"{int(n_over[0])}): forces vs kernel E's cell route max rel err "
+          f"{rel:.3e} (tol 1e-5); propagate 4 walkers (8 padded) x "
+          f"{sim.steps} steps {t_prop:.3f}s ({1e3 * t_prop / sim.steps:.3f} "
+          f"ms/step): builds {d['rebuilds']} ({periodic} at the interval, "
+          f"{d['rebuilds'] - periodic} for a displacement), n_over "
+          f"{d['n_over']}, max_disp {d['max_disp']:.4f} nm (< skin/2 = "
+          f"{vp.skin / 2:.3f}), violation {viol:.2e} nm; kernel launches "
+          f"{launched} {stamp}")
+    require(int(n_over[0]) == 0 and rel < 1e-5,
+            "Verlet: complete lists, forces equal to the cell route's")
+    require(bool(torch.isfinite(y).all()) and viol < 1e-4,
+            "Verlet: finite frames, rigid waters")
+    require(d["n_over"] == 0 and d["max_disp"] < vp.skin / 2,
+            "Verlet: lists exact over the lag")
+    require(d["rebuilds"] >= periodic, "Verlet: rebuilt at the interval")
+    require(launched == 0, "the Verlet route launches no kernel")
+    return dict(t_sim=t_sim, t_list=t_list, t_prop=t_prop)
+
+
 def main():
     watchdog()
     t_start = time.perf_counter()
@@ -545,7 +935,8 @@ def main():
     from isokann_tpu_torch import goldens as G
     from isokann_tpu_torch import sample as S
     from isokann_tpu_torch import workflows as W
-    from isokann_tpu_torch.md.fixtures import peptide_pdb
+    from isokann_tpu_torch.md.fixtures import build_peptide, peptide_pdb
+    from isokann_tpu_torch.md.minimize import minimize_energy
     from isokann_tpu_torch.md import forces as F
     from isokann_tpu_torch.md.pdbio import read_pdb, read_pdb_traj
     from isokann_tpu_torch.models import densenet
@@ -574,12 +965,14 @@ def main():
 
     # ---- 2. build: one nvcc per source, all started together ---------------
     # While nvcc runs, the three peptides of phases 9, 12 and 15 are built
-    # and minimized (FIRE over autograd: no hand-written kernel); their
-    # seconds are reported in those phases.
+    # and minimized (FIRE over autograd, its steps replayed from a CUDA
+    # graph: no hand-written kernel); their seconds are reported in those
+    # phases.
     t0 = time.perf_counter()
     pdb = os.path.join(ROOT, "build", "chip_smoke", "trpcage.pdb")
     spdb = os.path.join(ROOT, "build", "chip_smoke", "solvated_peptide.pdb")
     vpdb = os.path.join(ROOT, "build", "chip_smoke", "villin.pdb")
+    os.makedirs(os.path.dirname(pdb), exist_ok=True)
     with ThreadPoolExecutor(5) as pool:
         jobs = [pool.submit(k.lib) for k in (LK.langevin_middle,
                                              GK.aboba_girsanov, GB.gb_force,
@@ -598,6 +991,25 @@ def main():
         peptide_pdb(HP35, vpdb, minimize=True, maxiter=800, implicit="obc2")
         torch.cuda.synchronize()
         tv_pep = time.perf_counter() - t1
+        # the FIRE steps replayed from the CUDA graph against the eager
+        # loop: 30 steps of trp-cage from its built structure
+        tsys = build_system(pdb, implicit="obc2")
+        x_built = torch.as_tensor(build_peptide(
+            "NLYIQWLKDGGPSSGRPPPS").coords.reshape(-1),
+            dtype=torch.float32, device=dev)
+        fire, fire_s = {}, {}
+        for graph in (False, True):
+            t1 = time.perf_counter()
+            fire[graph] = minimize_energy(
+                lambda z: F.potential_energy_flat(tsys, z), x_built,
+                maxiter=30, graph=graph)
+            torch.cuda.synchronize()
+            fire_s[graph] = time.perf_counter() - t1
+        fire_err = float((fire[True] - fire[False]).abs().max())
+        print(f"  FIRE, trp-cage, 30 steps: CUDA graph {fire_s[True]:.3f}s, "
+              f"eager {fire_s[False]:.3f}s, max coordinate difference "
+              f"{fire_err:.3e} nm (tol 1e-5) {stamp}", flush=True)
+        require(fire_err < 1e-5, "FIRE on the CUDA graph = the eager loop")
         for job in jobs:
             job.result()
     LK.forces.lib()
@@ -915,19 +1327,22 @@ def main():
         return iy
 
     iy = grow("kde_needles + addcoords", needles, 1)
-    for minimize in (True, False):
+    # the minimizing run from one point a side: it keeps none (ROADMAP
+    # Queue 3 (p)), at ~0.4 s a try
+    for minimize, nx_ext in ((True, 1), (False, 2)):
         with torch.no_grad():
             ends = itt.flattenfirst(aiso.data.propcoords)
             chi_ends = aiso.model(
                 itt.flattenfirst(aiso.data.propfeatures))[:, 0]
         name = f"addextrapolates(minimize={minimize})"
         n0 = len(aiso.data)
-        grow(name, lambda: S.addextrapolates(aiso, 2, stepsize=0.01,
+        grow(name, lambda: S.addextrapolates(aiso, nx_ext, stepsize=0.01,
                                              minimize=minimize),
              lambda g: int(g > 0))
         new = aiso.data.coords[n0:]
-        require(grew[name] <= 4 and bool(torch.isfinite(new).all()),
-                f"{name}: at most 4 finite points")
+        require(grew[name] <= 2 * nx_ext
+                and bool(torch.isfinite(new).all()),
+                f"{name}: at most {2 * nx_ext} finite points")
         # each point's start: the burst end it lies nearest to; pushed
         # down (chi lower) from the lower half of chi, up from the upper
         start = torch.cdist(new, ends).argmin(dim=1)
@@ -1399,8 +1814,7 @@ def main():
     # from sequence and minimized in OBC2 (1500 FIRE steps), a 100-step lag,
     # nk=8, 300 iterations and 3 stratified resamples a generation, cutoff
     # 2000; the number of generations is cut to 2 and nx from 100 to 5
-    # (randx0's single-walker steps were a third of the run's time; 10
-    # until the goldens joined the script).
+    # (randx0's single-walker steps were a third of the run's time).
     t0 = time.perf_counter()
     GB.gb_force.launches = 0
     LK.langevin_middle.launches = 0
@@ -1726,10 +2140,11 @@ def main():
           f"{xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
     require(xrel < 1e-5 and vrel < 1e-4, "noiseless hybrid vs plain path")
 
-    # kinetic temperature over the last 100 of 200 steps, B=256, the same
-    # start and the same noise stream for both paths (1000 steps until the
-    # goldens joined the script, 400 until the constraints, dense and PME
-    # phases did: cut for its time limit)
+    # kinetic temperature over the last 50 of 100 steps, B=256, the same
+    # start and the same noise stream for both paths (cut for the time
+    # limit, PERF.md §4)
+    TCH = 25                    # steps a chunk, 4 chunks
+
     def kinetic_temperature(step_fn):
         x, v, temps = xg, vg, []
         for k in range(4):
@@ -1742,14 +2157,16 @@ def main():
 
     gh, gp = itt.make_generator(42), itt.make_generator(42)
     t1 = time.perf_counter()
-    temp_h = kinetic_temperature(lambda x, v: tsim._integrate(x, v, 50, gh))
+    temp_h = kinetic_temperature(lambda x, v: tsim._integrate(x, v, TCH,
+                                                              gh))
     t_th = time.perf_counter() - t1
     t1 = time.perf_counter()
     temp_p = kinetic_temperature(lambda x, v: I.langevin_middle(
         plain_force, x, v, tsim.masses3, tsim.temp, tsim.friction,
-        tsim.step, 50, tsim._noise(gp, dev)))
+        tsim.step, TCH, tsim._noise(gp, dev)))
     t_tp = time.perf_counter() - t1
-    print(f"  kinetic temperature B=256, steps 100-200: hybrid {temp_h:.2f} "
+    print(f"  kinetic temperature B=256, steps {2 * TCH}-{4 * TCH}: hybrid "
+          f"{temp_h:.2f} "
           f"K ({t_th:.1f}s), plain force_flat {temp_p:.2f} K ({t_tp:.1f}s), "
           f"target 310 K; |diff| {abs(temp_h - temp_p) / temp_p:.3%} (tol "
           f"1%)")
@@ -1764,13 +2181,15 @@ def main():
     require(nsim.route == "hybrid", "vacuum NoCutoff trp-cage on the "
                                     "hybrid route")
     gn = itt.make_generator(44)
-    temp_n = kinetic_temperature(lambda x, v: nsim._integrate(x, v, 50, gn))
+    temp_n = kinetic_temperature(lambda x, v: nsim._integrate(x, v, TCH,
+                                                              gn))
     ga = itt.make_generator(45)
     _, va = I.langevin_middle(sim.force, xT, vT, m3, sim.temp, sim.friction,
                               sim.step, NT, sim._noise(ga, dev))
     temp_a = float((m3 * va * va).sum(dim=1).mean() / (sim.dim * KB))
     print(f"  kinetic temperature at 2 fs: trp-cage vacuum NoCutoff "
-          f"{temp_n:.2f} K (B=256, 0.2-0.4 ps); alanine plain recursion "
+          f"{temp_n:.2f} K (B=256, {0.004 * TCH:.1f}-{0.008 * TCH:.1f} ps); "
+          f"alanine plain recursion "
           f"{temp_a:.2f} K (B={BT} after {NT} steps; kernel A {temp:.2f} K)")
     require(abs(temp_a - temp) / temp < 0.01,
             "alanine: plain recursion and kernel A at the same temperature")
@@ -1829,10 +2248,10 @@ def main():
     # ---- 12. solvated path --------------------------------------------------
     # examples/solvated_peptide.py's full variant at its widths: the
     # 11-residue peptide in a TIP3P box with 1 nm padding, rigid water, a
-    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 4 (16
-    # until the villin path joined the script, 8 until the goldens did).
+    # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 4, the
+    # biased run to 50 steps.
     t0 = time.perf_counter()
-    NXS, NKS, ITS, EQS, EQW = 4, 4, 200, 200, 4
+    NXS, NKS, ITS, EQS, EQW, XLAG, BSTEPS = 4, 4, 200, 200, 4, 50, 50
     t1 = time.perf_counter()
     ssim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100)
     ts_build = time.perf_counter() - t1
@@ -1862,7 +2281,8 @@ def main():
     ssim.setcoords(eq[0, 0])
     smodel = ssim.defaultmodel(n=len(ssim.featurizer.pairs), gen=sgen)
     t1 = time.perf_counter()
-    sxs = ssim.randx0(NXS, gen=sgen)
+    # randx0's lagged trajectory at 50-step lags
+    sxs = ssim.laggedtrajectory(NXS, steps=XLAG, gen=sgen)
     torch.cuda.synchronize()
     ts_x0 = time.perf_counter() - t1
     n_sx0 = NBK.neighbor_sweep.launches - EQS * (1 + r1 - r0)
@@ -1881,13 +2301,14 @@ def main():
     schi, skchi, sQ = siso.chis(), siso.koopman(), siso.rates()
     e_launches = NBK.neighbor_sweep.launches
     l_launches = NBK.neighbor_layout.launches
-    want = (EQS * (1 + r1 - r0) + NXS * 100 + 100 * (1 + r2 - r1))
+    want = (EQS * (1 + r1 - r0) + NXS * XLAG + 100 * (1 + r2 - r1))
     viol = max(cset.max_violation(sxs), cset.max_violation(sy))
-    ms_x0 = 1e3 * ts_x0 / (NXS * 100)
+    ms_x0 = 1e3 * ts_x0 / (NXS * XLAG)
     print(f"  solvated path: peptide_pdb (build + 300 FIRE steps) "
           f"{ts_pep:.3f}s, MDSimulation (solvate + system + plan) "
           f"{ts_build:.3f}s, equilibration {EQW}x{EQS} steps {ts_eq:.3f}s, "
-          f"randx0({NXS}) {ts_x0:.3f}s ({ms_x0:.3f} ms/step, {n_sx0} "
+          f"laggedtrajectory({NXS}, steps={XLAG}) {ts_x0:.3f}s ({ms_x0:.3f} "
+          f"ms/step, {n_sx0} "
           f"launches), propagate {NXS}x{NKS} {ts_prop:.3f}s, run({ITS}) "
           f"{ts_train:.3f}s; loss {siso.losses[0]:.4f} -> "
           f"{siso.losses[-1]:.4f}; retries {r2 - r0}, overflows "
@@ -1927,20 +2348,22 @@ def main():
                                   ssim.lagtime)
     t1 = time.perf_counter()
     try:
-        sw = ssim.propagate(sxs, NKS, gen=sgen)
+        sw = ssim.propagate(sxs, NKS, gen=sgen, steps=BSTEPS)
     finally:
         ssim.bias = None
     torch.cuda.synchronize()
     ts_biased = time.perf_counter() - t1
     sviol = cset.max_violation(sw.values)
     slogw = torch.log(sw.weights)
-    print(f"  solvated biased propagate {NXS}x{NKS} x100 constrained ABOBA "
-          f"steps: {ts_biased:.3f}s ({1e3 * ts_biased / 100:.3f} ms/step); "
+    print(f"  solvated biased propagate {NXS}x{NKS} x{BSTEPS} constrained "
+          f"ABOBA steps: {ts_biased:.3f}s "
+          f"({1e3 * ts_biased / BSTEPS:.3f} ms/step); "
           f"constraint violation {sviol:.2e} nm; logw "
           f"[{float(slogw.min()):.4f}, {float(slogw.max()):.4f}], E[w] "
           f"{float(sw.weights.mean()):.4f}; neighbor_sweep launches "
           f"{NBK.neighbor_sweep.launches}, neighbor_layout "
-          f"{NBK.neighbor_layout.launches} (expected 100 each); overflows "
+          f"{NBK.neighbor_layout.launches} (expected {BSTEPS} each); "
+          f"overflows "
           f"{ssim.overflows} {stamp}")
     require(isinstance(sw, itt.WeightedSamples)
             and sw.values.shape == (NXS, NKS, ssim.dim)
@@ -1950,8 +2373,8 @@ def main():
             "biased constrained propagation: finite frames and log-weights,"
             " the bias acting")
     require(sviol <= 1e-5, "biased rigid waters held to 1e-5 nm")
-    require(NBK.neighbor_sweep.launches == 100
-            and NBK.neighbor_layout.launches == 100,
+    require(NBK.neighbor_sweep.launches == BSTEPS
+            and NBK.neighbor_layout.launches == BSTEPS,
             "biased constrained: layout and sweep once a step")
     require(LK.langevin_middle.launches == 0 and LK.forces.launches == 0
             and GK.aboba_girsanov.launches == 0
@@ -1959,7 +2382,7 @@ def main():
             "the biased constrained run launches no other kernel")
     require(ssim.overflows == 0, "no neighbor-cell overflow")
     eb_launches = NBK.neighbor_sweep.launches
-    phase("solvated_path", t0, f"randx0 {ts_x0:.3f}s propagate "
+    phase("solvated_path", t0, f"laggedtrajectory {ts_x0:.3f}s propagate "
                                f"{ts_prop:.3f}s biased propagate "
                                f"{ts_biased:.3f}s")
 
@@ -2105,9 +2528,13 @@ def main():
     _, e_plain[16] = timed(lambda: NBK.neighbor_sweep_plain(
         ssim.system, splan, xq[:16].contiguous()))
     # the bound from this run's pairs: xq's 64 frames (B = 64, and four
-    # times over at B = 256), its first frame at B = 1
-    nq = xq.shape[0]
-    in_range, visited, culls = NBK.pair_counts(ssim.system, splan, xq)
+    # times over at B = 256), its first frame at B = 1; xq holds the 16
+    # burst ends four times over, so its counts are four times theirs
+    nq, nd = xq.shape[0], NXS * NKS
+    require(nq % nd == 0 and torch.equal(xq, xq[:nd].repeat(nq // nd, 1)),
+            "xq repeats the burst ends")
+    in_range, visited, culls = (nq // nd * c for c in NBK.pair_counts(
+        ssim.system, splan, xq[:nd]))
     in_1 = NBK.pair_counts(ssim.system, splan, xq[:1])[0]
     e_bms, e_by = NBK.bound_ms(splan, nq, in_range)
     bounds = {1: NBK.bound_ms(splan, 1, in_1)[0], nq: e_bms,
@@ -2138,14 +2565,14 @@ def main():
     # no constraints), minimized as examples/villin.py (800 FIRE steps, in
     # phase 2), with all-pairs features and the default chi model, through
     # Iso and run_girsanov at the reference's 0.2 ps Girsanov lag.  Depth
-    # cuts: nx 8, nk 4, 100 + 2 x 50 iterations, kde 8, 2 generations.
+    # cuts: nx 8, nk 4, 50 + 50 iterations, kde 8, 1 generation.
     # Adam at lr 1e-5: at the default 1e-3 (and at 1e-4) the first steps
     # move each first-layer pre-activation by about lr x the sum of the
     # 172,578 LayerNorm'd features (~140 at 1e-3), every sigmoid saturates
     # alike, chi is constant over the data and the shift-scale target
     # divides 0 by 0: training raises DomainError, in the JAX package too.
     t0 = time.perf_counter()
-    VNX, VNK, VIT, VGENS, VGIT, VLR = 8, 4, 100, 2, 50, 1e-5
+    VNX, VNK, VIT, VGENS, VGIT, VLR = 8, 4, 50, 1, 50, 1e-5
     for k in (PK.sqpairdist_fwd, PK.sqpairdist_bwd, GB.gb_force,
               LK.langevin_middle, LK.forces, GK.aboba_girsanov,
               NBK.neighbor_sweep, NBK.neighbor_layout):
@@ -2506,6 +2933,31 @@ def main():
     phase("pme", t0, f"PME box 2 lags {pph['t_prop']:.3f}s PME peptide "
                      f"{pph['t_pep']:.3f}s")
 
+    # ---- 17e. tip4p: TIP4P-Ew water, virtual sites around kernel E -------
+    t0 = time.perf_counter()
+    t4 = tip4p_phase(spdb, stamp)
+    nb_err = max(nb_err, t4["err"])
+    phase("tip4p", t0, f"MDSimulation {t4['t_build']:.3f}s propagate "
+                       f"{t4['t_prop']:.3f}s")
+
+    # ---- 17f. npt: the barostat, kernel E at the box of each block -------
+    t0 = time.perf_counter()
+    npt = npt_phase(spdb, eq[0, 0], stamp)
+    nb_err = max(nb_err, npt["err"])
+    phase("npt", t0, f"npt_langevin {npt['t_npt']:.3f}s")
+
+    # ---- 17g. ljpme: the dispersion branch of kernel E -------------------
+    t0 = time.perf_counter()
+    lj = ljpme_phase(spdb, eq[0, 0], stamp)
+    nb_err = max(nb_err, lj["err"])
+    phase("ljpme", t0, f"LJPME peptide propagate {lj['t_prop']:.3f}s")
+
+    # ---- 17h. cmap_verlet: CMAP forces and the Verlet-list route ---------
+    t0 = time.perf_counter()
+    cv = cmap_verlet_phase(spdb, eq[0, 0], stamp)
+    phase("cmap_verlet", t0, f"Verlet propagate {cv['t_prop']:.3f}s")
+    e_new = t4["e_launches"] + npt["e_launches"] + lj["e_launches"]
+
     # ---- 18. golden_md: the alanine acceptance bar ----------------------------
     # tests/test_golden_md.py through the port on the card: chi trained on
     # the committed (xs, ys) against the committed MSM eigenfunction, and
@@ -2672,16 +3124,18 @@ def main():
         "name": "neighbor_sweep", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": e_launches + eb_launches + pph["e_launches"],
+        "launches": e_launches + eb_launches + pph["e_launches"] + e_new,
         "max_abs_err": nb_err,
         "ms": e_ms[64],
         "sweep_ms": e_alone[64], "plain_ms": e_plain[64], "bound_ms": e_bms,
         "bound_by": e_by, "library_ms": None,
+        "ljpme_ms": lj["ms"], "ljpme_plain_ms": lj["plain_ms"],
+        "ljpme_bound_ms": lj["bound_ms"], "npt_ms": npt["ms"],
     }, {
         "name": "neighbor_layout", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": l_launches + eb_launches + pph["e_launches"],
+        "launches": l_launches + eb_launches + pph["e_launches"] + e_new,
         "max_abs_err": lay_err,
         "ms": e_prep[64],
         "plain_ms": l_plain[64],

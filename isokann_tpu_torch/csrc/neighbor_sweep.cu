@@ -1,5 +1,6 @@
 // Cell-list pair sweep of large periodic systems: LJ + reaction-field (or
-// Ewald real-space erfc) Coulomb forces of every pair within the cutoff.
+// Ewald real-space erfc) Coulomb forces of every pair within the cutoff,
+// and under LJPME the real-space dispersion term.
 // Two kernels, launched one after the other by neighbor_kernel.py: the
 // layout (the plan's cell table and the records the sweep reads) and the
 // sweep (a block of four warps per 32-slot tile of a cell's atoms and
@@ -13,8 +14,17 @@
 // bitmask of the lower-index atom (bit d-1 for the partner d indices
 // above, d <= 32) or the atom's far-partner table, the LJ well combined as
 // sqrt(eps_i) sqrt(eps_j), and Coulomb as the reaction field or, given
-// alpha, the erfc real-space term through the Abramowitz-Stegun erfc.  The
-// caller adds the 1-4 corrections and the bonded terms.
+// alpha, the erfc real-space term through the Abramowitz-Stegun erfc.
+// Given use_ljpme it adds q6_i q6_j dh/d(r^2) for every such pair, h(r) =
+// (1 - g6(beta r)) / r^6 the long-range dispersion kernel
+// (isokann_tpu/md/ewald.py:ljpme_hker_grad, with its series branch below
+// u = (beta r)^2 = 0.1225).  The TPU kernel left LJPME to its XLA sweep:
+// its 8-lane layout had no q6 lane.  The records need none: q6 = sqrt(2
+// eps) (2 Rmin/2)^3, so q6_i q6_j = 128 sqrt(eps_i) sqrt(eps_j) (Rmin_i/2
+// Rmin_j/2)^3 from the words 4 and 5 each record holds.  The box is a
+// launch argument, so a box that changes from launch to launch (the NPT
+// barostat's volume moves) needs no rebuilt table.  The caller adds the
+// 1-4 corrections and the bonded terms.
 //
 // Bound on this card: operations.  Each walker reads 12 bytes and writes
 // 12 bytes per atom; the work is the pair math of the ~400 partners each
@@ -72,8 +82,9 @@ struct Params {
   const int* full;      // (ncells, nfull) cells of the full stencil
   const int* far;       // (n + 1, E2) far partners, -1 padded
   float* f;             // (B, 3 n) forces
-  int n, ncells, T, nfull, E2, use_erfc;
+  int n, ncells, T, nfull, E2, use_erfc, use_ljpme;
   float bx, by, bz, ibx, iby, ibz, rc2, krf, coulomb, alpha, alpha2, a_spi;
+  float beta2, beta8;  // LJPME: beta^2, beta^8
 };
 
 // Abramowitz-Stegun 7.1.26, rounded per operation as the plain version
@@ -85,6 +96,25 @@ __device__ __forceinline__ float erfc_approx(float x) {
   poly = __fadd_rn(0.254829592f, __fmul_rn(t, poly));
   poly = __fmul_rn(t, poly);
   return __fmul_rn(poly, expf(__fmul_rn(-x, x)));
+}
+
+// dh/d(r^2) of the dispersion kernel h, rounded per operation in the plain
+// version's order (neighbor_kernel.ljpme_dh)
+__device__ __forceinline__ float ljpme_dh(float r2, float beta2,
+                                          float beta8) {
+  const float u = __fmul_rn(beta2, r2);
+  if (u < 0.1225f)
+    return __fmul_rn(beta8, __fadd_rn(-0.125f, __fmul_rn(u, 0.1f)));
+  const float e = expf(-u);
+  const float omg = __fsub_rn(
+      1.f, __fmul_rn(__fadd_rn(1.f, __fmul_rn(u, __fadd_rn(
+                                        1.f, __fmul_rn(0.5f, u)))),
+                     e));
+  const float r6 = __fmul_rn(__fmul_rn(r2, r2), r2);
+  return __fsub_rn(
+      __fdiv_rn(__fmul_rn(__fmul_rn(__fmul_rn(beta2, u), u), e),
+                __fmul_rn(2.f, r6)),
+      __fdiv_rn(__fmul_rn(3.f, omg), __fmul_rn(r6, r2)));
 }
 
 // Distance beyond the slack between two intervals (centres c, half widths
@@ -240,7 +270,14 @@ __global__ void __launch_bounds__(kTile * kSplit)
                 __fmul_rn(qq, __fmul_rn(__fmul_rn(-0.5f, inv_r2), inv_r)),
                 __fmul_rn(qq, p.krf));
           }
-          const float w = __fmul_rn(-2.f, __fadd_rn(g_lj, g_c));
+          float g = __fadd_rn(g_lj, g_c);
+          if (p.use_ljpme) {
+            const float rr = __fmul_rn(bi.x, bjq.x);
+            const float c6 = __fmul_rn(__fmul_rn(128.f, epsij),
+                                       __fmul_rn(__fmul_rn(rr, rr), rr));
+            g = __fadd_rn(g, __fmul_rn(c6, ljpme_dh(r2, p.beta2, p.beta8)));
+          }
+          const float w = __fmul_rn(-2.f, g);
           fx += (double)__fmul_rn(w, dx);
           fy += (double)__fmul_rn(w, dy);
           fz += (double)__fmul_rn(w, dz);
@@ -460,11 +497,11 @@ __global__ void __launch_bounds__(kLayoutThreads)
 extern "C" int neighbor_sweep(const void* slots, const void* boxes,
                               const void* full, const void* far, void* f,
                               int B, int n, int ncells, int T, int nfull,
-                              int E2, int use_erfc, float bx, float by,
-                              float bz, float ibx, float iby, float ibz,
-                              float rc2, float krf, float coulomb,
+                              int E2, int use_erfc, int use_ljpme, float bx,
+                              float by, float bz, float ibx, float iby,
+                              float ibz, float rc2, float krf, float coulomb,
                               float alpha, float alpha2, float a_spi,
-                              void* stream) {
+                              float beta2, float beta8, void* stream) {
   if (B < 1 || B > 65535 || T < 1 || E2 < 1 || E2 > kMaxFar || nfull < 1 ||
       ncells < 1)
     return cudaErrorInvalidValue;
@@ -480,6 +517,9 @@ extern "C" int neighbor_sweep(const void* slots, const void* boxes,
   p.nfull = nfull;
   p.E2 = E2;
   p.use_erfc = use_erfc;
+  p.use_ljpme = use_ljpme;
+  p.beta2 = beta2;
+  p.beta8 = beta8;
   p.bx = bx;
   p.by = by;
   p.bz = bz;

@@ -178,7 +178,7 @@ def peptide_pdb(sequence, path, minimize=True, maxiter=800, implicit=None,
     """Build a peptide, minimize it (FIRE, ``maxiter`` steps, with OBC2
     solvent when ``implicit="obc2"``) and write it to ``path``.  The
     minimization runs on ``device`` (default: the GPU, raising without
-    one)."""
+    one; there its steps replay from a CUDA graph)."""
     import torch
 
     from .._device import resolve_device
@@ -194,7 +194,7 @@ def peptide_pdb(sequence, path, minimize=True, maxiter=800, implicit=None,
         x0 = torch.as_tensor(struct.coords.reshape(-1), dtype=torch.float32,
                              device=device)
         x = minimize_energy(lambda z: potential_energy_flat(sys, z), x0,
-                            maxiter=maxiter)
+                            maxiter=maxiter, graph=True)
         struct.coords = x.detach().cpu().double().numpy().reshape(-1, 3)
         write_pdb(path, struct)
     return path

@@ -1,14 +1,20 @@
 """Batched force-field energies in PyTorch; forces by autograd.
 
 Counterpart of ``isokann_tpu/md/forces.py`` for the NoCutoff,
-reaction-field (CutoffNonPeriodic / CutoffPeriodic) and Ewald / PME
-methods (the erfc real space here, the reciprocal, self and exception
-terms from ``md/ewald.py``) and OBC2 implicit solvent
-(``gbsa_obc2_energy``).  Energies in
+reaction-field (CutoffNonPeriodic / CutoffPeriodic), Ewald / PME and LJPME
+methods (the erfc real space and the dispersion h-term here, the
+reciprocal, self and exception terms from ``md/ewald.py``), OBC2 implicit
+solvent (``gbsa_obc2_energy``) and CMAP (``md/cmap.py``).  Energies in
 kJ/mol; coordinates (..., natoms, 3) in nm; every term sums over the last
 two axes so batches need no vmap.  Systems built with
 ``dense_pairs=False`` route through the O(n) cell-list engine
 (``md/neighbor.py``), whose forces are analytic.
+
+``box``: the box lengths at run time (a tensor or three numbers) in place
+of the system's, for the NPT barostat's volume moves
+(``md/barostat.py``).  Virtual sites (``md/vsites.py``) are placed from
+their parents before every energy, and their forces handed back to the
+parents.
 """
 
 from __future__ import annotations
@@ -58,7 +64,35 @@ def dihedral_energy(sys: MDSystem, x):
                                                    - sys.dih_phase)), dim=-1)
 
 
-def nonbonded_energy(sys: MDSystem, x):
+def torsions(x, i, j, k, l):
+    """Angles phi (B, m) of the torsions (i, j, k, l) of walkers x (B, n,
+    3), and the function of dE/dphi (B, m) that gives their analytic
+    forces as (atom indices, (B, m, 3) values) for a per-atom sum."""
+    b1 = x[:, j] - x[:, i]
+    b2 = x[:, k] - x[:, j]
+    b3 = x[:, l] - x[:, k]
+    n1 = torch.cross(b1, b2, dim=-1)
+    n2 = torch.cross(b2, b3, dim=-1)
+    n1sq = torch.sum(n1 * n1, dim=-1) + 1e-12
+    n2sq = torch.sum(n2 * n2, dim=-1) + 1e-12
+    b2sq = torch.sum(b2 * b2, dim=-1) + 1e-12
+    b2n = torch.sqrt(b2sq)
+    m1 = torch.cross(n1, b2 / b2n[..., None], dim=-1)
+    phi = torch.atan2(torch.sum(m1 * n2, dim=-1), torch.sum(n1 * n2, dim=-1))
+
+    def forces(dEdphi):
+        c1 = (-b2n / n1sq)[..., None]
+        c3 = (-b2n / n2sq)[..., None]
+        p12 = (torch.sum(b1 * b2, dim=-1) / b2sq)[..., None]
+        p32 = (torch.sum(b3 * b2, dim=-1) / b2sq)[..., None]
+        g1 = dEdphi[..., None] * c1 * n1
+        g3 = dEdphi[..., None] * c3 * n2
+        g2 = -p12 * g1 - p32 * g3
+        return [j, i, k, j, l, k], [-g1, g1, -g2, g2, -g3, g3]
+    return phi, forces
+
+
+def nonbonded_energy(sys: MDSystem, x, box=None):
     """All-pairs LJ + Coulomb with exclusion/1-4 scale matrices.
 
     NoCutoff: plain 1/r Coulomb.  Cutoff methods: reaction-field Coulomb
@@ -67,11 +101,16 @@ def nonbonded_energy(sys: MDSystem, x):
     minimum image first.  Ewald / PME: erfc-damped Coulomb for full pairs
     within the cutoff, the cut LJ and the scaled 1-4 LJ, plus the
     reciprocal, self and exception energies (the 1-4 Coulomb lies in the
-    exception term, OpenMM's exception semantics)."""
+    exception term, OpenMM's exception semantics).  LJPME adds the
+    dispersion h-term q6_i q6_j h(r) of every pair within the cutoff
+    (excluded and 1-4 pairs too: the k-space sum holds them), its
+    reciprocal sum and its k = 0 and self terms.  ``box``: the box at run
+    time (module docstring)."""
+    from .ewald import _box_tensor
     n = sys.natoms
     diff = x[:, :, None, :] - x[:, None, :, :]
     if sys.method in PERIODIC and sys.box is not None:
-        wrap = torch.tensor(sys.box, dtype=x.dtype, device=x.device)
+        wrap = _box_tensor(sys, box, x.device).to(x.dtype)
         diff = diff - wrap * torch.round(diff / wrap)
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
     r2 = torch.sum(diff * diff, dim=-1) + eye      # avoid 0 on the diagonal
@@ -87,7 +126,9 @@ def nonbonded_energy(sys: MDSystem, x):
         return 0.5 * torch.sum(e, dim=(-1, -2))
     if sys.method in EWALD:
         from .ewald import (ewald_exception_energy, ewald_recip_energy,
-                            ewald_self_energy)
+                            ewald_self_energy, ewald_tables_for_box,
+                            ljpme_const_energy, ljpme_hker,
+                            ljpme_tables_for_box)
         al = sys.ewald_alpha
         within = (r < sys.cutoff).to(x.dtype)
         full = (sys.qq_scale >= 0.999).to(x.dtype)
@@ -95,11 +136,21 @@ def nonbonded_energy(sys: MDSystem, x):
         l_one4 = ((sys.lj_scale > 0) & (sys.lj_scale < 0.999)).to(x.dtype)
         e = (qq * torch.special.erfc(al * r) * inv_r * within * full
              + elj * within * l_full + elj * sys.lj_scale * l_one4)
-        return (0.5 * torch.sum(e, dim=(-1, -2))
-                + ewald_recip_energy(sys.ewald_kvecs, sys.ewald_coefs,
-                                     sys.charges, x)
-                + ewald_self_energy(al, sys.charges)
-                + ewald_exception_energy(sys, x, al))
+        kv, cf = ((sys.ewald_kvecs, sys.ewald_coefs) if box is None
+                  else ewald_tables_for_box(sys, box))
+        e = (0.5 * torch.sum(e, dim=(-1, -2))
+             + ewald_recip_energy(kv, cf, sys.charges, x)
+             + ewald_self_energy(al, sys.charges)
+             + ewald_exception_energy(sys, x, al, box))
+        if sys.method == "LJPME":
+            c6 = sys.q6[:, None] * sys.q6[None, :] * (1.0 - eye)
+            kv6, cf6 = ((kv, sys.ljpme_coefs) if box is None
+                        else ljpme_tables_for_box(sys, box))
+            e = (e + 0.5 * torch.sum(c6 * ljpme_hker(r2, sys.ljpme_beta)
+                                     * within, dim=(-1, -2))
+                 + ewald_recip_energy(kv6, cf6, sys.q6, x)
+                 + ljpme_const_energy(sys, box))
+        return e
     rc = sys.cutoff
     krf = (1.0 / rc ** 3) * (sys.eps_rf - 1.0) / (2.0 * sys.eps_rf + 1.0)
     crf = (1.0 / rc) * (3.0 * sys.eps_rf) / (2.0 * sys.eps_rf + 1.0)
@@ -115,12 +166,14 @@ def nonbonded_energy(sys: MDSystem, x):
     return 0.5 * torch.sum(e, dim=(-1, -2))
 
 
-def dispersion_correction_energy(sys: MDSystem):
+def dispersion_correction_energy(sys: MDSystem, box=None):
     """Isotropic long-range LJ tail E(V) = 2 pi/V (S12/9rc^9 - S6/3rc^3);
-    coordinate-independent, so it adds no force."""
+    coordinate-independent, so it adds no force; volume-dependent, which
+    the barostat's acceptance reads."""
     if not sys.use_dispersion:
         return 0.0
-    V = math.prod(sys.box)
+    V = (math.prod(sys.box) if box is None
+         else torch.prod(torch.as_tensor(box, dtype=torch.float32)))
     rc = sys.cutoff
     return (2.0 * math.pi / V) * (sys.disp_c12sum / (9.0 * rc ** 9)
                                   - sys.disp_c6sum / (3.0 * rc ** 3))
@@ -178,33 +231,42 @@ def gbsa_obc2_energy(sys: MDSystem, x):
 
 
 def bonded_energy(sys: MDSystem, xb):
-    """Bonds + angles + torsions; xb: (B, natoms, 3) -> (B,)."""
-    return (bond_energy(sys, xb) + angle_energy(sys, xb)
-            + dihedral_energy(sys, xb))
+    """Bonds + angles + torsions + CMAP; xb: (B, natoms, 3) -> (B,)."""
+    from .cmap import cmap_energy, has_cmap
+    e = (bond_energy(sys, xb) + angle_energy(sys, xb)
+         + dihedral_energy(sys, xb))
+    return e + cmap_energy(sys, xb) if has_cmap(sys) else e
 
 
-def potential_energy(sys: MDSystem, x):
-    """Total potential; x: (..., natoms, 3) -> (...) kJ/mol.  A
-    ``dense_pairs=False`` system goes through the neighbor engine, walker
-    by walker."""
-    shape = x.shape[:-2]
-    xb = x.reshape(-1, sys.natoms, 3)
+def _potential_raw(sys: MDSystem, xb, box=None):
+    """Total potential of (B, natoms, 3) walkers whose virtual sites are
+    placed -> (B,)."""
     if not sys.dense_pairs:
         from .neighbor import default_plan, potential_energy_neighbor
         plan = default_plan(sys, xb[0])
-        return torch.stack([potential_energy_neighbor(sys, xi, plan)
-                            for xi in xb]).reshape(shape)
-    e = (bonded_energy(sys, xb) + nonbonded_energy(sys, xb)
-         + dispersion_correction_energy(sys))
+        return torch.stack([potential_energy_neighbor(sys, xi, plan, box)
+                            for xi in xb])
+    e = (bonded_energy(sys, xb) + nonbonded_energy(sys, xb, box)
+         + dispersion_correction_energy(sys, box))
     if sys.implicit == "obc2":
         e = e + gbsa_obc2_energy(sys, xb)
-    return e.reshape(shape)
+    return e
 
 
-def potential_energy_flat(sys: MDSystem, xflat):
+def potential_energy(sys: MDSystem, x, box=None):
+    """Total potential; x: (..., natoms, 3) -> (...) kJ/mol, virtual sites
+    placed first.  A ``dense_pairs=False`` system goes through the
+    neighbor engine, walker by walker.  ``box``: the box at run time."""
+    from .vsites import place_vsites
+    shape = x.shape[:-2]
+    xb = place_vsites(sys, x.reshape(-1, sys.natoms, 3))
+    return _potential_raw(sys, xb, box).reshape(shape)
+
+
+def potential_energy_flat(sys: MDSystem, xflat, box=None):
     """Flat-coordinate variant; xflat: (..., 3N) -> (...)."""
     return potential_energy(sys, xflat.reshape(xflat.shape[:-1]
-                                               + (sys.natoms, 3)))
+                                               + (sys.natoms, 3)), box)
 
 
 def _minus_grad(energy, xflat):
@@ -216,16 +278,28 @@ def _minus_grad(energy, xflat):
 
 def force_flat(sys: MDSystem, xflat):
     """Batched forces -grad E on flat coords: (..., 3N) -> (..., 3N); the
-    neighbor engine's analytic forces for a ``dense_pairs=False``
-    system."""
+    neighbor engine's analytic forces for a ``dense_pairs=False`` system.
+    With virtual sites the gradient is taken at the placed coordinates and
+    handed to the parents by the placement's transpose."""
+    from .vsites import place_vsites_flat, redistribute_forces_flat
+    xflat = place_vsites_flat(sys, xflat)
     if not sys.dense_pairs:
         from .neighbor import force_flat_neighbor
-        return force_flat_neighbor(sys, xflat)
-    return _minus_grad(lambda x: potential_energy_flat(sys, x), xflat)
+        f = force_flat_neighbor(sys, xflat)
+    else:
+        f = _minus_grad(lambda x: _potential_raw(
+            sys, x.reshape(-1, sys.natoms, 3)).reshape(x.shape[:-1]), xflat)
+    return redistribute_forces_flat(sys, f, xflat)
+
+
+def force(sys: MDSystem, x):
+    """-grad E of one walker ``x`` (natoms, 3) -> (natoms, 3), as
+    ``force_flat`` (virtual sites handed to their parents)."""
+    return force_flat(sys, x.reshape(1, -1)).reshape(x.shape)
 
 
 def bonded_force_flat(sys: MDSystem, xflat):
-    """-grad of the bonded terms alone (bonds, angles, torsions), by
+    """-grad of the bonded terms alone (bonds, angles, torsions, CMAP), by
     autograd: (B, 3N) -> (B, 3N)."""
     return _minus_grad(lambda x: bonded_energy(
         sys, x.reshape(x.shape[0], sys.natoms, 3)), xflat)
@@ -233,7 +307,9 @@ def bonded_force_flat(sys: MDSystem, xflat):
 
 def energy_terms(sys: MDSystem, x):
     """Per-term breakdown; x: (natoms, 3) or (B, natoms, 3)."""
-    xb = x.reshape(-1, sys.natoms, 3)
+    from .cmap import cmap_energy, has_cmap
+    from .vsites import place_vsites
+    xb = place_vsites(sys, x.reshape(-1, sys.natoms, 3))
     single = x.dim() == 2
 
     def out(e):
@@ -243,6 +319,8 @@ def energy_terms(sys: MDSystem, x):
                  angle=out(angle_energy(sys, xb)),
                  dihedral=out(dihedral_energy(sys, xb)),
                  nonbonded=out(nonbonded_energy(sys, xb)))
+    if has_cmap(sys):
+        terms["cmap"] = out(cmap_energy(sys, xb))
     if sys.use_dispersion:
         terms["dispersion"] = dispersion_correction_energy(sys)
     if sys.implicit == "obc2":

@@ -2,8 +2,9 @@
 
 A Python loop over autograd of the energy, with the reference's constants
 and its fixed trip count (no convergence test).  It runs as plain PyTorch
-on whichever device holds the coordinates: no kernel of the port serves
-it, as no TPU kernel served the reference's.
+on whichever device holds the coordinates (on the card, for a system
+without a box, replayed from a CUDA graph of one step): no kernel of
+the port serves it, as no TPU kernel served the reference's.
 """
 
 from __future__ import annotations
@@ -12,10 +13,14 @@ import torch
 
 
 def minimize_energy(energy_fn, x0, maxiter: int = 500, dt0: float = 1e-4,
-                    dtmax: float = 1e-2):
+                    dtmax: float = 1e-2, graph: bool = False):
     """FIRE minimization of ``energy_fn`` (flat coords (..., D) -> (...))
     for ``maxiter`` steps; returns minimized coordinates of ``x0``'s
-    shape."""
+    shape.  ``graph``: on the card, replay the steps from a CUDA graph of
+    one (an eager step is a few hundred small launches, host-bound); the
+    energy must then do no host work: that of a system without a box
+    does none (``fixtures.peptide_pdb``), a box is copied to the card at
+    each call."""
     squeeze = x0.dim() == 1
     x = (x0[None, :] if squeeze else x0).detach().clone()
 
@@ -29,12 +34,7 @@ def minimize_energy(energy_fn, x0, maxiter: int = 500, dt0: float = 1e-4,
             (g,) = torch.autograd.grad(torch.sum(energy_fn(z)), z)
         return -g
 
-    B = x.shape[0]
-    v = torch.zeros_like(x)
-    dt = torch.full((B, 1), dt0, dtype=x.dtype, device=x.device)
-    alpha = torch.full((B, 1), alpha0, dtype=x.dtype, device=x.device)
-    npos = torch.zeros(B, dtype=torch.int32, device=x.device)
-    for _ in range(int(maxiter)):
+    def step(x, v, dt, alpha, npos):
         f = force(x)
         power = torch.sum(f * v, dim=-1, keepdim=True)
         fnorm = torch.linalg.vector_norm(f, dim=-1, keepdim=True) + 1e-12
@@ -54,5 +54,36 @@ def minimize_energy(energy_fn, x0, maxiter: int = 500, dt0: float = 1e-4,
         dx = dt * v
         dxn = torch.linalg.vector_norm(dx, dim=-1, keepdim=True)
         dx = torch.where(dxn > 0.05, dx / dxn * 0.05, dx)
-        x = x + dx
+        return x + dx, v, dt, alpha, npos
+
+    B = x.shape[0]
+    state = (x, torch.zeros_like(x),
+             torch.full((B, 1), dt0, dtype=x.dtype, device=x.device),
+             torch.full((B, 1), alpha0, dtype=x.dtype, device=x.device),
+             torch.zeros(B, dtype=torch.int32, device=x.device))
+    if graph and x.is_cuda and int(maxiter) > 0:
+        state = _replayed(step, state, int(maxiter))
+    else:
+        for _ in range(int(maxiter)):
+            state = step(*state)
+    x = state[0]
     return x[0] if squeeze else x
+
+
+def _replayed(step, state, n):
+    """``n`` applications of ``step`` to the CUDA tensors ``state``,
+    replayed from a CUDA graph of one (captured after a warm-up call on
+    copies, on a side stream)."""
+    state = tuple(t.clone() for t in state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*(t.clone() for t in state))
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        for t, new in zip(state, step(*state)):
+            t.copy_(new)
+    for _ in range(n):
+        g.replay()
+    return state

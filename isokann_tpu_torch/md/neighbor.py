@@ -3,8 +3,10 @@ the plain pair sweep, exception corrections and sparse bonded terms.
 
 Counterpart of ``isokann_tpu/md/neighbor.py`` for the reaction-field
 ``CutoffPeriodic`` method (what the reference's "auto" rule picks for a
-boxed system) and for Ewald / PME (the erfc real space in the sweep, the
-reciprocal sum and the exception corrections of ``md/ewald.py``).  The
+boxed system), for Ewald / PME (the erfc real space in the sweep, the
+reciprocal sum and the exception corrections of ``md/ewald.py``) and for
+LJPME (the dispersion h-term q6_i q6_j h(r) in the sweep and the
+exceptions, its reciprocal sum and k = 0 term).  The
 dense all-pairs path needs (n, n) tensors; this engine tiles the box into
 cells of at most ``C`` atoms and sweeps cell-blocked pairs over a
 precomputed stencil:
@@ -16,23 +18,28 @@ precomputed stencil:
   neighbour cell), the cell capacity, the hard-exclusion window bitmask
   (``excl_bits``, bit d-1 of atom i set when atom i+d is a 1-2/1-3 partner,
   d <= 32) and the far-partner table ``excl_far``; ``sorted_frame`` (a
-  stable sort of the cell ids), ``table`` and ``overflow``.
+  stable sort of the cell ids), ``table`` and ``overflow``.  ``box_slack``
+  builds the stencil for cells (1 - box_slack) times as long, so that it
+  stays valid while an NPT box shrinks; ``geometry`` gives the box, its
+  inverse and the cell edges of the plan's box or of one given at run
+  time (the grid keeps its cell counts).
 - ``_sweep``: the reference's tensor sweep (energy, or forces with the
   Newton reaction through the static inverse permutation) for one walker.
 - ``_exception_terms``: the sparse 1-4 corrections; hard exclusions are
   masked inside the sweep.  Under Ewald every exception pair also takes
   out the reciprocal sum's erf part (OpenMM's exception semantics).
-- ``bonded_force_sparse``: analytic bonded forces by gathers, summed per
-  atom in a fixed order (no atomics: the same input gives the same bits
-  on the card); ``strip_rigid_water_bonded`` drops the bond and angle
-  terms of rigid waters.
+- ``bonded_force_sparse``: analytic bonded forces (CMAP included) by
+  gathers, summed per atom in a fixed order (no atomics: the same input
+  gives the same bits on the card); ``strip_rigid_water_bonded`` drops
+  the bond and angle terms of rigid waters.
 - ``force_flat_neighbor``: batched forces, the sweep in
   ``md.neighbor_kernel.neighbor_sweep`` (the hand-written CUDA kernel on
-  the card, with the erfc real space under Ewald; its plain version on
-  the CPU) plus the exception corrections, the reciprocal forces under
-  Ewald and the bonded terms.
+  the card, with the erfc real space under Ewald and the dispersion term
+  under LJPME; its plain version on the CPU) plus the exception
+  corrections, the reciprocal forces under Ewald and the bonded terms.
 
-LJPME and a traced (NPT) box are not ported.
+Every entry point takes ``box``, the box at run time (a tensor or three
+numbers) in place of the system's: the NPT barostat's volume moves.
 """
 
 from __future__ import annotations
@@ -44,12 +51,23 @@ import numpy as np
 import torch
 
 from .ewald import (erfc_approx, ewald_alpha,  # noqa: F401
-                    ewald_recip_energy, ewald_recip_force, ewald_self_energy)
-from .forces import bonded_energy, dispersion_correction_energy
+                    ewald_recip_energy, ewald_recip_forces,
+                    ewald_self_energy,
+                    ewald_tables_for_box, ljpme_const_energy,
+                    ljpme_hker_grad, ljpme_tables_for_box)
+from .forces import bonded_energy, dispersion_correction_energy, torsions
 from .system import COULOMB, EWALD, PERIODIC, MDSystem
 
 WIN = 32                 # hard-exclusion window of the bitmask
 _SQRT_PI = math.sqrt(math.pi)
+
+
+def box_np(box):
+    """A box given at run time (a tensor or three numbers) as a float64
+    numpy (3,) on the host."""
+    if torch.is_tensor(box):
+        box = box.detach().cpu().tolist()
+    return np.asarray(box, np.float64).reshape(3)
 
 
 def _round_up(x, m):
@@ -63,15 +81,20 @@ class NeighborPlan:
     capacity (``margin`` times the largest occupancy); without them a
     density heuristic is used.  ``capacity`` overrides both, ``cell_div``
     (a scalar divisor of the cutoff or a per-axis cell count) and
-    ``cells`` override the grid choice."""
+    ``cells`` override the grid choice.  ``box_slack``: the stencil stays
+    valid for boxes down to (1 - box_slack) of the system's (NPT).
+    ``cutoff`` overrides the system's (the Verlet lists' grid at cutoff +
+    skin, ``md/verlet.py``)."""
 
     def __init__(self, sys: MDSystem, x0=None, capacity: int = None,
-                 margin: float = 1.5, cell_div=None, cells=None):
+                 margin: float = 1.5, cell_div=None, cells=None,
+                 box_slack: float = 0.0, cutoff: float = None):
         if sys.method not in PERIODIC or sys.box is None:
             raise ValueError(f"neighbor engine requires a periodic method "
                              f"{PERIODIC} with a box, not {sys.method}")
+        self.box_slack = float(box_slack)
         self.box = np.asarray(sys.box, np.float64)
-        self.cutoff = float(sys.cutoff)
+        self.cutoff = float(sys.cutoff if cutoff is None else cutoff)
         if not self.cutoff < float(self.box.min()) / 2:
             raise ValueError(
                 f"neighbor engine requires cutoff < min(box)/2 "
@@ -91,6 +114,7 @@ class NeighborPlan:
             edge = self.box / nc
             Rd = np.minimum(np.ceil(self.cutoff / edge - 1e-9).astype(int),
                             nc)
+            shrunk = edge * (1.0 - self.box_slack)
 
             def canon(o):
                 """Canonical wrapped offset in [-nc//2, (nc-1)//2]."""
@@ -102,9 +126,9 @@ class NeighborPlan:
                 for oy in range(-Rd[1], Rd[1] + 1):
                     for oz in range(-Rd[2], Rd[2] + 1):
                         o = canon((ox, oy, oz))
-                        sep = np.array([max(abs(o[0]) - 1, 0) * edge[0],
-                                        max(abs(o[1]) - 1, 0) * edge[1],
-                                        max(abs(o[2]) - 1, 0) * edge[2]])
+                        sep = np.array([max(abs(o[0]) - 1, 0) * shrunk[0],
+                                        max(abs(o[1]) - 1, 0) * shrunk[1],
+                                        max(abs(o[2]) - 1, 0) * shrunk[2]])
                         if np.dot(sep, sep) < self.cutoff ** 2:
                             offs.append(o)
             # offsets that wrap onto the same cell (small or collapsed
@@ -237,6 +261,29 @@ class NeighborPlan:
                 atoms=t(np.arange(self.natoms), torch.long))
         return self._dev[key]
 
+    def geometry(self, device, box=None) -> dict:
+        """The box lengths, their inverses and the cell edges as float32
+        tensors on ``device`` (``box``, ``ibox``, ``cell``) and in float64
+        on the host (``box_np``, ``cell_np``): the plan's, or those of the
+        box ``box`` given at run time (a tensor or three numbers; the grid
+        keeps its cell counts, the edges scale with the box).  The last
+        run-time box is cached."""
+        if box is None:
+            tb = self.on(device)
+            return dict(box=tb["box"], ibox=tb["ibox"], cell=tb["cell"],
+                        box_np=self.box, cell_np=self.cell)
+        b = box_np(box)
+        key = (str(torch.device(device)), tuple(b))
+        last = self._dev.get("geometry")
+        if last is None or last[0] != key:
+            def t(a):
+                return torch.as_tensor(a, dtype=torch.float32, device=device)
+            cell = b / self.nc
+            last = (key, dict(box=t(b), ibox=t(1.0 / b), cell=t(cell),
+                              box_np=b, cell_np=cell))
+            self._dev["geometry"] = last
+        return last[1]
+
     def _cell_id_np(self, x):
         xw = np.asarray(x, np.float64).reshape(-1, 3)
         xw = xw - self.box * np.floor(xw / self.box)
@@ -245,17 +292,20 @@ class NeighborPlan:
 
     # ---- the cell table, on the walkers' device ---------------------------
 
-    def cell_id(self, xw):
-        """(..., n, 3) wrapped coordinates -> (..., n) cell ids."""
+    def cell_id(self, xw, box=None):
+        """(..., n, 3) wrapped coordinates -> (..., n) cell ids (the cell
+        edges of ``geometry``)."""
         tb = self.on(xw.device)
-        cd = torch.minimum(torch.clamp((xw / tb["cell"]).to(torch.long),
+        cell = self.geometry(xw.device, box)["cell"]
+        cd = torch.minimum(torch.clamp((xw / cell).to(torch.long),
                                        min=0), tb["nc"] - 1)
         return (cd[..., 0] * int(self.nc[1]) + cd[..., 1]) \
             * int(self.nc[2]) + cd[..., 2]
 
-    def sorted_frame(self, xw):
+    def sorted_frame(self, xw, box=None):
         """The cell table in the sorted frame, for (..., n, 3) wrapped
-        coordinates.  Returns ``(order, table, pos, overflow)``:
+        coordinates (in the box ``box``, as ``geometry``).  Returns
+        ``(order, table, pos, overflow)``:
 
         - ``order`` (..., n): original index of the k-th atom after a
           stable sort by cell id;
@@ -267,7 +317,7 @@ class NeighborPlan:
         """
         n, C = self.natoms, self.C
         tb = self.on(xw.device)
-        scid, order = torch.sort(self.cell_id(xw), dim=-1, stable=True)
+        scid, order = torch.sort(self.cell_id(xw, box), dim=-1, stable=True)
         lead = scid.shape[:-1]
         cells = tb["cells"].expand(*lead, self.ncells).contiguous()
         start = torch.searchsorted(scid, cells, side="left")
@@ -356,19 +406,21 @@ def hard_excluded(oid_i, oid_j, bits_i, bits_j, far_i):
 # ==========================================================================
 
 def _sweep(sys: MDSystem, plan: NeighborPlan, x, want_force: bool,
-           alpha=None):
+           alpha=None, box=None):
     """Cell-blocked pair sweep over the stencil in the sorted frame, as
     the reference's: the self-cell block with an i != j mask, each (o, -o)
     offset pair once on a Newton plan with the reaction returned to the
     j-cells through the static inverse permutation.  ``x``: (natoms, 3),
     unwrapped.  ``alpha``: the Ewald real-space (erfc) Coulomb instead of
-    the reaction field.  Returns the force (natoms, 3) or the energy."""
+    the reaction field; LJPME adds the dispersion h-term.  ``box``: the box
+    at run time.  Returns the force (natoms, 3) or the energy."""
     n = plan.natoms
     tb = plan.on(x.device)
-    box = tb["box"].to(x.dtype)
+    box = plan.geometry(x.device, box)["box"].to(x.dtype)
     rc, krf, crf = _rf_consts(sys)
     xw = x - box * torch.floor(x / box)
-    order, table, pos, _ = plan.sorted_frame(xw)
+    order, table, pos, _ = plan.sorted_frame(xw, box)
+    ljpme = sys.method == "LJPME"
 
     def pad_row(a, fill=0.0):
         return torch.cat([a[order], torch.full((1,) + a.shape[1:], fill,
@@ -378,6 +430,7 @@ def _sweep(sys: MDSystem, plan: NeighborPlan, x, want_force: bool,
     xs = pad_row(xw)
     qs, rms, eps_ = (pad_row(sys.charges), pad_row(sys.rmin_half),
                      pad_row(sys.eps))
+    q6s = pad_row(sys.q6) if ljpme else None
     oid = torch.cat([order, torch.full((1,), -2, dtype=order.dtype,
                                        device=x.device)])
     bits_s = pad_row(tb["bits"][:n].long(), 0)
@@ -406,6 +459,12 @@ def _sweep(sys: MDSystem, plan: NeighborPlan, x, want_force: bool,
             e, g = _pair_terms(r2s, qq, rmin, epsij, krf, crf)
         else:
             e, g = _pair_terms_ewald(r2s, qq, rmin, epsij, alpha)
+        if ljpme:
+            # the real-space dispersion h-term (md/ewald.py)
+            c6 = q6s[table][:, :, None] * q6s[tj][:, None, :]
+            h, dh = ljpme_hker_grad(r2s, sys.ljpme_beta)
+            e = e + c6 * h
+            g = g + c6 * dh
         mask = maskb.to(x.dtype)
         return e * mask, g * mask, d
 
@@ -476,9 +535,12 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
     Coulomb + LJ.  Hard (1-2/1-3) exclusions are masked inside the sweep;
     with the reaction field they contribute nothing here, so only the soft
     (1-4) pairs are computed.  Under Ewald every exception pair also takes
-    out qq erf(alpha r) / r, its share of the reciprocal sum.  ``box``: the
-    box lengths as a tensor on the walkers' device (a plan's), else made
-    from ``sys.box``.  Returns (B, n, 3) forces or (B,) energies."""
+    out qq erf(alpha r) / r, its share of the reciprocal sum; under LJPME a
+    hard pair within the cutoff adds the h-term the sweep masked (the
+    k-space sum holds it).  ``box``: the box (a tensor on the walkers'
+    device or three numbers), else the system's.  Returns (B, n, 3) forces
+    or (B,) energies."""
+    from .ewald import _box_tensor
     ewald = sys.method in EWALD
     rows = _per_system(sys, ("exceptions", ewald, str(x.device)),
                        lambda: torch.nonzero(
@@ -487,8 +549,7 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
     if rows.shape[0] == 0:
         return (torch.zeros_like(x) if want_force
                 else torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
-    if box is None:
-        box = torch.tensor(sys.box, dtype=x.dtype, device=x.device)
+    box = _box_tensor(sys, box, x.device).to(x.dtype)
     rc, krf, crf = _rf_consts(sys)
     i, j = sys.excl_idx[rows, 0], sys.excl_idx[rows, 1]
     eqq, elj = sys.excl_qq[rows], sys.excl_lj[rows]
@@ -514,14 +575,21 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
         erf_ar = torch.special.erf(al * r)
         erfc_ar = 1.0 - erf_ar
         cut = soft * within
+        if sys.method == "LJPME":
+            h, dh = ljpme_hker_grad(r2, sys.ljpme_beta)
+            c6 = (1.0 - soft) * within * sys.q6[i] * sys.q6[j]
         if not want_force:
             e = (qq * (eqq - erf_ar - cut * erfc_ar) * inv_r
                  + soft * (elj - within) * e_lj)
+            if sys.method == "LJPME":
+                e = e + c6 * h
             return torch.sum(e, dim=-1)
         two_a = 2.0 * al / _SQRT_PI * torch.exp(-(al * r) ** 2) * inv_r
         dEdr = qq * (-eqq * inv_r2 - two_a + erf_ar * inv_r2
                      + cut * (two_a + erfc_ar * inv_r2))
         g = 0.5 * dEdr * inv_r + soft * (elj - within) * g_lj
+        if sys.method == "LJPME":
+            g = g + c6 * dh
     else:
         e_full, g_full = _pair_terms(r2, qq, rmin, epsij, krf, crf)
         if not want_force:
@@ -534,24 +602,40 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
     return _sum_into(x, atoms, table, torch.cat([gd, -gd], dim=1))
 
 
-def _ewald_terms(sys: MDSystem, x, want_force: bool):
-    """The reciprocal sum of (B, n, 3) walkers under Ewald: forces, or the
-    energies with the self term; zeros for other methods."""
+def _ewald_terms(sys: MDSystem, x, want_force: bool, box=None):
+    """The reciprocal sums of (B, n, 3) walkers under Ewald (and LJPME's
+    dispersion): forces, or the energies with the self and k = 0 terms;
+    zeros for other methods.  ``box``: the box at run time."""
     if sys.method not in EWALD:
         return (torch.zeros_like(x) if want_force
                 else torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
+    kv, cf = ((sys.ewald_kvecs, sys.ewald_coefs) if box is None
+              else ewald_tables_for_box(sys, box))
+    tables = [(kv, cf, sys.charges)]
+    if sys.method == "LJPME":
+        kv6, cf6 = ((kv, sys.ljpme_coefs) if box is None
+                    else ljpme_tables_for_box(sys, box))
+        tables.append((kv6, cf6, sys.q6))
     if want_force:
-        return ewald_recip_force(sys.ewald_kvecs, sys.ewald_coefs,
-                                 sys.charges, x)
-    return (ewald_recip_energy(sys.ewald_kvecs, sys.ewald_coefs,
-                               sys.charges, x)
-            + ewald_self_energy(sys.ewald_alpha, sys.charges))
+        # one evaluation of the phases for both sums (the same k-vectors)
+        return ewald_recip_forces(kv, [(c, q) for _, c, q in tables], x)
+    e = (sum(ewald_recip_energy(k, c, q, x) for k, c, q in tables)
+         + ewald_self_energy(sys.ewald_alpha, sys.charges))
+    if sys.method == "LJPME":
+        e = e + ljpme_const_energy(sys, box)
+    return e
 
 
 def _alpha(sys: MDSystem):
     """The sweep's Ewald splitting parameter, None for the reaction
     field."""
     return sys.ewald_alpha if sys.method in EWALD else None
+
+
+def _beta(sys: MDSystem):
+    """The sweep's dispersion splitting parameter under LJPME, else
+    None."""
+    return sys.ljpme_beta if sys.method == "LJPME" else None
 
 
 def default_plan(sys, x):
@@ -561,22 +645,25 @@ def default_plan(sys, x):
     return NeighborPlan(sys, x0=x0[:sys.natoms])
 
 
-def neighbor_nonbonded_energy(sys: MDSystem, x, plan: NeighborPlan = None):
+def neighbor_nonbonded_energy(sys: MDSystem, x, plan: NeighborPlan = None,
+                              box=None):
     """O(n) nonbonded energy of one walker ``x`` (natoms, 3); equals
-    ``forces.nonbonded_energy`` on periodic systems (reaction field or
-    Ewald / PME)."""
+    ``forces.nonbonded_energy`` on periodic systems (reaction field,
+    Ewald / PME or LJPME).  ``box``: the box at run time (build the plan
+    with a ``box_slack`` that covers its shrink)."""
     plan = plan or default_plan(sys, x)
-    return (_sweep(sys, plan, x, False, _alpha(sys))
-            + _exception_terms(sys, x[None], False)[0]
-            + _ewald_terms(sys, x[None], False)[0])
+    return (_sweep(sys, plan, x, False, _alpha(sys), box)
+            + _exception_terms(sys, x[None], False, box)[0]
+            + _ewald_terms(sys, x[None], False, box)[0])
 
 
-def neighbor_nonbonded_force(sys: MDSystem, x, plan: NeighborPlan = None):
+def neighbor_nonbonded_force(sys: MDSystem, x, plan: NeighborPlan = None,
+                             box=None):
     """O(n) analytic nonbonded forces of one walker (natoms, 3)."""
     plan = plan or default_plan(sys, x)
-    return (_sweep(sys, plan, x, True, _alpha(sys))
-            + _exception_terms(sys, x[None], True)[0]
-            + _ewald_terms(sys, x[None], True)[0])
+    return (_sweep(sys, plan, x, True, _alpha(sys), box)
+            + _exception_terms(sys, x[None], True, box)[0]
+            + _ewald_terms(sys, x[None], True, box)[0])
 
 
 # ==========================================================================
@@ -584,8 +671,9 @@ def neighbor_nonbonded_force(sys: MDSystem, x, plan: NeighborPlan = None):
 # ==========================================================================
 
 def bonded_force_sparse(sys: MDSystem, x):
-    """Analytic bond, angle and torsion forces of (B, n, 3) walkers,
+    """Analytic bond, angle, torsion and CMAP forces of (B, n, 3) walkers,
     summed per atom in a fixed order (``_sum_into``)."""
+    from .cmap import cmap_force_terms, has_cmap
     idx, vals = [], []
     if sys.bond_idx.shape[0]:
         i, j = sys.bond_idx[:, 0], sys.bond_idx[:, 1]
@@ -614,30 +702,16 @@ def bonded_force_sparse(sys: MDSystem, x):
         idx += [a, c, b]
         vals += [-gu, -gv, gu + gv]
     if sys.dih_idx.shape[0]:
-        i, j, k, l = sys.dih_idx.unbind(1)
-        b1 = x[:, j] - x[:, i]
-        b2 = x[:, k] - x[:, j]
-        b3 = x[:, l] - x[:, k]
-        n1 = torch.cross(b1, b2, dim=-1)
-        n2 = torch.cross(b2, b3, dim=-1)
-        n1sq = torch.sum(n1 * n1, dim=-1) + 1e-12
-        n2sq = torch.sum(n2 * n2, dim=-1) + 1e-12
-        b2sq = torch.sum(b2 * b2, dim=-1) + 1e-12
-        b2n = torch.sqrt(b2sq)
-        m1 = torch.cross(n1, b2 / b2n[..., None], dim=-1)
-        phi = torch.atan2(torch.sum(m1 * n2, dim=-1),
-                          torch.sum(n1 * n2, dim=-1))
+        phi, forces = torsions(x, *sys.dih_idx.unbind(1))
         dEdphi = -sys.dih_pk * sys.dih_n * torch.sin(
             sys.dih_n * phi - sys.dih_phase)
-        c1 = (-b2n / n1sq)[..., None]
-        c3 = (-b2n / n2sq)[..., None]
-        p12 = (torch.sum(b1 * b2, dim=-1) / b2sq)[..., None]
-        p32 = (torch.sum(b3 * b2, dim=-1) / b2sq)[..., None]
-        g1 = dEdphi[..., None] * c1 * n1
-        g3 = dEdphi[..., None] * c3 * n2
-        g2 = -p12 * g1 - p32 * g3
-        idx += [j, i, k, j, l, k]
-        vals += [-g1, g1, -g2, g2, -g3, g3]
+        i_, v_ = forces(dEdphi)
+        idx += i_
+        vals += v_
+    if has_cmap(sys):
+        i_, v_ = cmap_force_terms(sys, x)
+        idx += i_
+        vals += v_
     if not idx:
         return torch.zeros_like(x)
     atoms, table = _sum_table(sys, "bonded", idx, x.device)
@@ -666,27 +740,31 @@ def strip_rigid_water_bonded(sys: MDSystem, triplets) -> MDSystem:
 # Whole-system entry points
 # ==========================================================================
 
-def potential_energy_neighbor(sys: MDSystem, x, plan: NeighborPlan = None):
-    """Total potential of one walker ``x`` (natoms, 3)."""
+def potential_energy_neighbor(sys: MDSystem, x, plan: NeighborPlan = None,
+                              box=None):
+    """Total potential of one walker ``x`` (natoms, 3); ``box``: the box
+    at run time."""
     return (bonded_energy(sys, x[None])[0]
-            + neighbor_nonbonded_energy(sys, x, plan)
-            + dispersion_correction_energy(sys))
+            + neighbor_nonbonded_energy(sys, x, plan, box)
+            + dispersion_correction_energy(sys, box))
 
 
-def force_neighbor(sys: MDSystem, x, plan: NeighborPlan = None):
+def force_neighbor(sys: MDSystem, x, plan: NeighborPlan = None, box=None):
     """Total analytic force of one walker ``x`` (natoms, 3) through the
     tensor sweep."""
     return (bonded_force_sparse(sys, x[None])[0]
-            + neighbor_nonbonded_force(sys, x, plan))
+            + neighbor_nonbonded_force(sys, x, plan, box))
 
 
 def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
-                        sweep=None):
+                        sweep=None, box=None):
     """Batched flat-coordinate forces (..., 3N) -> (..., 3N): the pair
     sweep in ``neighbor_kernel.neighbor_sweep`` (kernel E on the card, the
-    erfc real space under Ewald; ``sweep`` replaces it, e.g. by its plain
-    version), plus the exception corrections, the reciprocal forces under
-    Ewald and the bonded terms."""
+    erfc real space under Ewald, the dispersion term under LJPME;
+    ``sweep`` replaces it, e.g. by its plain version), plus the exception
+    corrections, the reciprocal forces under Ewald and the bonded terms.
+    ``box``: the box at run time (three numbers or a tensor, read to the
+    host once a call for the kernel's launch)."""
     if sweep is None:
         from .neighbor_kernel import neighbor_sweep as sweep
     shape = xflat.shape
@@ -694,9 +772,12 @@ def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
     if plan is None:
         plan = default_plan(sys, xb)
     x3 = xb.reshape(xb.shape[0], sys.natoms, 3)
-    box = plan.on(xb.device)["box"]
-    f = (sweep(sys, plan, xb, _alpha(sys)).reshape(x3.shape)
-         + _exception_terms(sys, x3, True, box)
-         + _ewald_terms(sys, x3, True)
+    if box is not None:
+        box = box_np(box)
+    geo = plan.geometry(xb.device, box)
+    f = (sweep(sys, plan, xb, _alpha(sys), _beta(sys), box=box
+               ).reshape(x3.shape)
+         + _exception_terms(sys, x3, True, geo["box"])
+         + _ewald_terms(sys, x3, True, None if box is None else geo["box"])
          + bonded_force_sparse(sys, x3))
     return f.reshape(shape)

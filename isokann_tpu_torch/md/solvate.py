@@ -1,14 +1,14 @@
-"""Explicit-solvent preparation: a TIP3P water box and counterions.
+"""Explicit-solvent preparation: a TIP3P or TIP4P-Ew water box and
+counterions.
 
 Counterpart of ``isokann_tpu/md/solvate.py`` (``_water_coords``,
-``solvate``, ``water_triplets``), in numpy: with the same seed it places
-the same atoms.  Waters sit on a simple cubic lattice at liquid density
-with random orientations; lattice sites overlapping the solute are
-removed; ions replace the waters farthest from the solute.  The result is
-meant to be briefly equilibrated under rigid-water dynamics.
-
-Only ``model="tip3p"`` is ported: the 4-site TIP4P-Ew water needs virtual
-sites, which the port does not have.
+``solvate``, ``water_msites``, ``water_triplets``), in numpy: with the
+same seed it places the same atoms.  Waters sit on a simple cubic lattice
+at liquid density with random orientations; lattice sites overlapping the
+solute are removed; ions replace the waters farthest from the solute.
+The result is meant to be briefly equilibrated under rigid-water
+dynamics.  A 4-site water's M point becomes a virtual site
+(``water_msites``, ``md/vsites.py``).
 """
 
 from __future__ import annotations
@@ -25,17 +25,27 @@ ANG_HOH = math.radians(104.52)
 R_HH = 2.0 * R_OH * math.sin(ANG_HOH / 2.0)
 WATER_SPACING = 0.3104          # (1 / 33.43 waters/nm^3)^(1/3)
 WATER_NAMES = ("HOH", "WAT", "TIP3", "SOL", "SPC")
+WATER4_NAMES = ("HOH", "HOH4", "WAT", "TIP4", "T4E", "SOL")
+
+# TIP4P-Ew M-site average3 weights over (O, H1, H2) (Horn et al. 2004, the
+# values of OpenMM's amber14/tip4pew.xml): M sits 0.0125 nm from O along
+# the HOH bisector
+M_WEIGHTS = (0.786646558, 0.106676721, 0.106676721)
 
 
-def _water_coords(center, rng):
-    """One TIP3P water at ``center`` with a random orientation -> (3, 3)
-    rows O, H1, H2."""
+def _water_coords(center, rng, nsite=3):
+    """One water at ``center`` with a random orientation -> (nsite, 3)
+    rows O, H1, H2 (and M for a 4-site water)."""
     h1 = np.array([R_OH, 0.0, 0.0])
     h2 = np.array([R_OH * math.cos(ANG_HOH), R_OH * math.sin(ANG_HOH), 0.0])
     # random rotation from the QR factorisation of a Gaussian matrix
     q, r = np.linalg.qr(rng.normal(size=(3, 3)))
     q = q * np.sign(np.diag(r))
-    return np.stack([center, center + h1 @ q.T, center + h2 @ q.T])
+    rows = [center, center + h1 @ q.T, center + h2 @ q.T]
+    if nsite == 4:
+        w = M_WEIGHTS
+        rows.append(w[0] * rows[0] + w[1] * rows[1] + w[2] * rows[2])
+    return np.stack(rows)
 
 
 def _min_image_d2(sites, xyz, box):
@@ -53,20 +63,22 @@ def solvate(struct: PDBStructure, padding: float = 1.0, box=None,
             neutralize: bool = True, ionic_strength: float = 0.0,
             exclusion: float = 0.24, seed: int = 0,
             model: str = "tip3p") -> PDBStructure:
-    """Surround ``struct`` with TIP3P water and counterions.
+    """Surround ``struct`` with water and counterions.
 
     - ``padding``: box = solute extent + 2 x padding [nm] (ignored if
       ``box`` is given)
     - ``neutralize``: add Na+/Cl- to cancel the solute's formal charge
     - ``ionic_strength``: additional NaCl pairs [mol/l]
     - ``exclusion``: water O to solute-atom clearance [nm]
+    - ``model``: "tip3p" or "tip4pew" (4-site: the M points become
+      virtual sites, ``water_msites``)
 
     Returns a new PDBStructure with ``box`` set; the solute keeps its
-    atom indices, ions follow, then the waters as (O, H1, H2) blocks."""
-    if model != "tip3p":
-        raise NotImplementedError(
-            f"water model {model!r} is not ported: 4-site waters need "
-            f"virtual sites; use 'tip3p'")
+    atom indices, ions follow, then the waters as (O, H1, H2[, M])
+    blocks."""
+    if model not in ("tip3p", "tip4pew"):
+        raise ValueError(f"unknown water model {model!r}")
+    nsite = 4 if model == "tip4pew" else 3
     rng = np.random.default_rng(seed)
     xyz = np.asarray(struct.coords, float)
     lo, hi = xyz.min(axis=0), xyz.max(axis=0)
@@ -115,15 +127,38 @@ def solvate(struct: PDBStructure, padding: float = 1.0, box=None,
         rid += 1
         coords.append(ion_sites[k][None, :])
     for site in wat_sites:
-        coords.append(_water_coords(site, rng))
-        names += ["O", "H1", "H2"]
-        resn += ["HOH"] * 3
-        resi += [rid] * 3
-        chains += ["W"] * 3
-        elements += ["O", "H", "H"]
+        coords.append(_water_coords(site, rng, nsite))
+        names += ["O", "H1", "H2", "M"][:nsite]
+        resn += ["HOH"] * nsite
+        resi += [rid] * nsite
+        chains += ["W"] * nsite
+        elements += ["O", "H", "H", "EP"][:nsite]
         rid += 1
     return PDBStructure(names, resn, resi, chains, elements,
                         np.concatenate(coords, axis=0), box)
+
+
+def water_msites(struct: PDBStructure):
+    """(vs_idx, parents (nv, 3), weights (nv, 3)) of every 4-site water's
+    M / EPW point, for ``md.vsites.attach_vsites``."""
+    idx, par = [], []
+    cur, cur_tag = {}, None
+    for i in range(struct.natoms):
+        if struct.res_names[i] not in WATER4_NAMES:
+            continue
+        tag = (struct.chain_ids[i], struct.res_ids[i])
+        if tag != cur_tag:
+            cur, cur_tag = {}, tag
+        n = struct.atom_names[i]
+        cur[{"OW": "O", "HW1": "H1", "HW2": "H2",
+             "EPW": "M", "MW": "M", "EP": "M"}.get(n, n)] = i
+        if len(cur) == 4 and "M" in cur:
+            idx.append(cur["M"])
+            par.append((cur["O"], cur["H1"], cur["H2"]))
+    nv = len(idx)
+    return (np.asarray(idx, np.int64),
+            np.asarray(par, np.int64).reshape(nv, 3),
+            np.tile(np.asarray(M_WEIGHTS), (nv, 1)))
 
 
 def water_triplets(struct: PDBStructure):

@@ -5,11 +5,15 @@ CutoffNonPeriodic and CutoffPeriodic (reaction field; minimum image when
 periodic), Ewald and PME (one method under two names, as in the
 reference: the erfc real space within the cutoff and the structure-factor
 reciprocal sum of ``md/ewald.py``, with OpenMM's error tolerance
-``ewald_tol``), and for OBC2 implicit solvent (``implicit="obc2"``, which
-forces NoCutoff, with the reference's element-based Born radii and scale
-factors).  LJPME is not ported.  The reference's dense incidence
-matrices were a TPU device (difference vectors as matmuls); the port
-gathers by index instead, so it keeps only the index tables.
+``ewald_tol``), LJPME (Ewald-summed r^-6 dispersion on the same k-vectors:
+per-atom amplitudes ``q6`` and the signed coefficients ``ljpme_coefs``),
+and for OBC2 implicit solvent (``implicit="obc2"``, which forces
+NoCutoff, with the reference's element-based Born radii and scale
+factors).  A system may carry virtual sites (``md/vsites.py``) and CMAP
+torsion-torsion maps (``md/cmap.py``); ``system_from_tables`` builds one
+from resolved numeric tables.  The reference's dense incidence matrices
+were a TPU device (difference vectors as matmuls); the port gathers by
+index instead, so it keeps only the index tables.
 
 Two pair layouts, as in the reference (``dense_pairs``): the dense (n, n)
 Coulomb / LJ scale matrices for the all-pairs force paths, or, above
@@ -38,9 +42,11 @@ COULOMB = 138.935456            # kJ mol^-1 nm e^-2  (OpenMM ONE_4PI_EPS0)
 KB = 0.00831446261815324        # kJ/mol/K
 
 METHODS = ("NoCutoff", "CutoffNonPeriodic", "CutoffPeriodic", "Ewald",
-           "PME")
-PERIODIC = ("CutoffPeriodic", "Ewald", "PME")
-EWALD = ("Ewald", "PME")
+           "PME", "LJPME")
+PERIODIC = ("CutoffPeriodic", "Ewald", "PME", "LJPME")
+EWALD = ("Ewald", "PME", "LJPME")
+# the isotropic LJ tail correction: LJPME's k = 0 term replaces it
+DISPERSION = ("CutoffPeriodic", "Ewald", "PME")
 DENSE_PAIRS_MAX = 4000   # above this, build_system(dense_pairs="auto")
                          # switches to the O(n) neighbor-engine layout
 
@@ -83,6 +89,23 @@ class MDSystem:
     ewald_kvecs: Optional[torch.Tensor] = None   # (nk, 3) [1/nm], Ewald/PME
     ewald_coefs: Optional[torch.Tensor] = None   # (nk,) [kJ/mol per |S|^2]
     ewald_alpha: float = 0.0    # splitting parameter [1/nm]
+    # LJPME: dispersion amplitudes sqrt(c6_ii) on the Coulomb k-vectors
+    q6: Optional[torch.Tensor] = None            # (n,), or (0,)
+    ljpme_coefs: Optional[torch.Tensor] = None   # (nk,) signed -h^(k)/(2V)
+    ljpme_beta: float = 0.0     # dispersion splitting parameter [1/nm]
+    # virtual sites (``md/vsites.py:attach_vsites``): gather tables of the
+    # placement and of its transpose; None or zero-size without sites
+    vs_idx: Optional[torch.Tensor] = None        # (nv,) site atoms
+    vs_gather: Optional[torch.Tensor] = None     # (n, 3) parents (or self)
+    vs_w: Optional[torch.Tensor] = None          # (n, 3) placement weights
+    vs_rev: Optional[torch.Tensor] = None        # (n, kmax) owned sites
+    vs_rev_w: Optional[torch.Tensor] = None      # (n, kmax) their weights
+    vs_wc: Optional[torch.Tensor] = None         # (n,) cross weights, or (0,)
+    vs_rev_slot: Optional[torch.Tensor] = None   # (n, kmax) parent slot 1-3
+    # CMAP torsion-torsion maps (``md/cmap.py``); None or zero-size
+    cmap_idx: Optional[torch.Tensor] = None      # (nc, 8) two torsions
+    cmap_type: Optional[torch.Tensor] = None     # (nc,) map index
+    cmap_coefs: Optional[torch.Tensor] = None    # (nt, R, R, 4, 4) patches
 
     @property
     def natoms(self):
@@ -186,6 +209,128 @@ def _dispersion_sums(rmin_half, eps):
             float(np.sum(w * epsij * rmin ** 12)))
 
 
+def _ljpme_tables(method, box, alpha, kvecs, rmin_half, eps):
+    """LJPME's (q6 (n,), coefficients (nk,), beta): the geometric
+    amplitudes sqrt(2 eps) (2 Rmin/2)^3 and -h^(k)/(2V) with beta = the
+    Ewald alpha; zero-size otherwise."""
+    if method != "LJPME":
+        return np.zeros(0), np.zeros(0), 0.0
+    from .ewald import ljpme_coefs
+    q6 = np.sqrt(2.0 * np.asarray(eps)) * (2.0 * np.asarray(rmin_half)) ** 3
+    return q6, ljpme_coefs(box, alpha, kvecs), float(alpha)
+
+
+def system_from_tables(*, masses, charges, rmin_half, eps,
+                       bond_idx=None, bond_k=None, bond_r0=None,
+                       angle_idx=None, angle_k=None, angle_t0=None,
+                       dih_idx=None, dih_pk=None, dih_phase=None, dih_n=None,
+                       excl_idx=None, excl_qq=None, excl_lj=None,
+                       method: str = "NoCutoff", cutoff: float = 1.0,
+                       eps_rf: float = 78.5, box=None,
+                       gb_radii=None, gb_scales=None,
+                       cmap_idx=None, cmap_type=None, cmap_grids=None,
+                       dense_pairs="auto", ewald_tol: float = 5e-4,
+                       dispersion_correction: bool = True,
+                       device=None) -> MDSystem:
+    """MDSystem from resolved numeric tables (the entry point of the exact-
+    parameter importers), its tensors on ``device`` (the GPU unless the
+    caller names another).  Units: kJ/mol, nm, rad, e, amu; harmonic terms
+    E = k (x - x0)^2.
+
+    ``excl_idx/excl_qq/excl_lj``: the sparse exception list with the
+    target pair scales (0 for 1-2/1-3, the 1-4 scales); unlisted pairs
+    interact at scale 1.  ``gb_radii``/``gb_scales`` switch on OBC2.
+    ``cmap_idx`` (nc, 8) / ``cmap_type`` (nc,) / ``cmap_grids`` (list of
+    (R, R) energy grids [kJ/mol], angle origin -pi): CMAP corrections, the
+    bicubic patches computed here in float64."""
+    device = resolve_device(device)
+
+    def np1(a):
+        return (np.zeros(0) if a is None
+                else np.asarray(a, np.float64).reshape(-1))
+
+    def idx2(a, width):
+        return (np.zeros((0, width), np.int64) if a is None
+                else np.asarray(a, np.int64).reshape(-1, width))
+
+    masses, charges = np1(masses), np1(charges)
+    rmin_half, eps = np1(rmin_half), np1(eps)
+    natoms = masses.shape[0]
+    if not (charges.shape[0] == rmin_half.shape[0] == eps.shape[0]
+            == natoms):
+        raise ValueError("per-atom table lengths disagree")
+    bi, ai, di = idx2(bond_idx, 2), idx2(angle_idx, 3), idx2(dih_idx, 4)
+    eidx = idx2(excl_idx, 2)
+    if len(eidx):
+        eidx = np.stack([eidx.min(axis=1), eidx.max(axis=1)], axis=1)
+    eqq, elj = np1(excl_qq), np1(excl_lj)
+    ci, ct = idx2(cmap_idx, 8), idx2(cmap_type, 1)[:, 0]
+    if len(ci):
+        from .cmap import bicubic_coefs
+        cc = np.stack([bicubic_coefs(g) for g in cmap_grids])
+    else:
+        cc = np.zeros((0, 0, 0, 4, 4))
+
+    implicit = "obc2" if gb_radii is not None else None
+    if implicit is not None:
+        method = "NoCutoff"
+    if method not in METHODS:
+        raise NotImplementedError(f"nonbonded method {method!r} is not "
+                                  f"ported; supported: {METHODS}")
+    if method in EWALD and box is None:
+        raise ValueError(f"method={method} requires a periodic box")
+    if box is not None and method in PERIODIC:
+        cutoff = min(cutoff, 0.999 * float(min(box)) / 2)
+    alpha, kvecs, coefs = 0.0, np.zeros((0, 3)), np.zeros(0)
+    if method in EWALD:
+        from .ewald import ewald_alpha, ewald_kvectors
+        alpha = ewald_alpha(float(cutoff), ewald_tol)
+        kvecs, coefs = ewald_kvectors(box, alpha, ewald_tol)
+    use_disp = bool(dispersion_correction and box is not None
+                    and method in DISPERSION)
+    s6, s12 = _dispersion_sums(rmin_half, eps) if use_disp else (0.0, 0.0)
+    q6, lj6cf, beta = _ljpme_tables(method, box, alpha, kvecs, rmin_half,
+                                    eps)
+    if dense_pairs == "auto":
+        dense_pairs = natoms <= DENSE_PAIRS_MAX
+    if dense_pairs:
+        qq = np.ones((natoms, natoms))
+        lj = np.ones((natoms, natoms))
+        np.fill_diagonal(qq, 0.0)
+        np.fill_diagonal(lj, 0.0)
+        for (a, b), wq, wl in zip(eidx, eqq, elj):
+            qq[a, b] = qq[b, a] = wq
+            lj[a, b] = lj[b, a] = wl
+    else:
+        qq = lj = np.zeros((0, 0))
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float64),
+                               dtype=torch.float32, device=device)
+
+    def idx(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+    return MDSystem(
+        bond_idx=idx(bi), bond_k=f32(np1(bond_k)), bond_r0=f32(np1(bond_r0)),
+        angle_idx=idx(ai), angle_k=f32(np1(angle_k)),
+        angle_t0=f32(np1(angle_t0)),
+        dih_idx=idx(di), dih_pk=f32(np1(dih_pk)),
+        dih_phase=f32(np1(dih_phase)), dih_n=f32(np1(dih_n)),
+        charges=f32(charges), rmin_half=f32(rmin_half), eps=f32(eps),
+        qq_scale=f32(qq), lj_scale=f32(lj), masses=f32(masses),
+        gb_radii=f32(np1(gb_radii)), gb_scales=f32(np1(gb_scales)),
+        method=method, cutoff=float(cutoff), eps_rf=float(eps_rf),
+        box=tuple(float(b) for b in box) if box is not None else None,
+        use_dispersion=use_disp, disp_c6sum=s6, disp_c12sum=s12,
+        implicit=implicit, excl_idx=idx(eidx), excl_qq=f32(eqq),
+        excl_lj=f32(elj), dense_pairs=bool(dense_pairs),
+        ewald_kvecs=f32(kvecs), ewald_coefs=f32(coefs),
+        ewald_alpha=float(alpha), q6=f32(q6), ljpme_coefs=f32(lj6cf),
+        ljpme_beta=beta, cmap_idx=idx(ci), cmap_type=idx(ct),
+        cmap_coefs=f32(cc))
+
+
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
                  eps_rf: float = 78.5, implicit: Optional[str] = None,
                  dispersion_correction: bool = True, dense_pairs="auto",
@@ -223,9 +368,8 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     if method == "auto":
         method = "CutoffPeriodic" if box is not None else "CutoffNonPeriodic"
     if method not in METHODS:
-        where = (" (ROADMAP Queue 1 item 7)" if method == "LJPME" else "")
         raise NotImplementedError(
-            f"nonbonded method {method!r} is not ported{where}; supported: "
+            f"nonbonded method {method!r} is not ported; supported: "
             f"{METHODS}")
     if method in EWALD and box is None:
         raise ValueError(f"method={method} requires a periodic box")
@@ -275,8 +419,10 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     rmin_half = np.array([amber.lj_params(t)[0] / 10.0 for t in types])
     eps = np.array([amber.lj_params(t)[1] * KCAL for t in types])
     use_disp = bool(dispersion_correction and box is not None
-                    and method in PERIODIC)
+                    and method in DISPERSION)
     s6, s12 = _dispersion_sums(rmin_half, eps) if use_disp else (0.0, 0.0)
+    q6, lj6cf, beta = _ljpme_tables(method, box, alpha, kvecs, rmin_half,
+                                    eps)
     if dense_pairs == "auto":
         dense_pairs = top.natoms <= DENSE_PAIRS_MAX
     qq, lj = (_exclusion_scales(top, amber.SCEE, amber.SCNB) if dense_pairs
@@ -308,5 +454,6 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
         implicit=implicit, excl_idx=idx(eidx, 2), excl_qq=f32(eqq),
         excl_lj=f32(elj), dense_pairs=bool(dense_pairs),
         ewald_kvecs=f32(kvecs), ewald_coefs=f32(coefs),
-        ewald_alpha=float(alpha),
+        ewald_alpha=float(alpha), q6=f32(q6), ljpme_coefs=f32(lj6cf),
+        ljpme_beta=beta,
     )

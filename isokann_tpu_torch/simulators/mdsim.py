@@ -8,9 +8,9 @@ Unbiased LangevinMiddle propagation takes one of five force routes, as
 the reference's ``_force_fn`` / ``_pallas_eligible`` /
 ``_nb_kernel_eligible`` choose on a TPU (read "TPU" as "CUDA"):
 
-- ``"fused"``: at most 64 atoms in vacuum, without constraints or Ewald.
-  Whole trajectories in ``md.langevin_kernel.langevin_middle`` (kernel A;
-  any batch size).
+- ``"fused"``: at most 64 atoms in vacuum, without constraints, Ewald or
+  virtual sites.  Whole trajectories in
+  ``md.langevin_kernel.langevin_middle`` (kernel A; any batch size).
 - ``"hybrid"``: 64 < atoms <= 640 with a non-periodic method (OBC2
   implicit solvent or vacuum reaction field).  The plain LangevinMiddle
   recursion (``md.integrators.langevin_middle``) over
@@ -24,8 +24,13 @@ the reference's ``_force_fn`` / ``_pallas_eligible`` /
   under Ewald / PME) at every step, the exception corrections, the
   reciprocal sum and the sparse bonded forces analytically.  After each
   propagation a sample of frames is checked for cell overflow; an
-  overflow regrows the plan and warns.
-- ``"plain"``: at most 64 atoms with OBC2, constraints or Ewald / PME.
+  overflow regrows the plan and warns.  With ``neighbor_mode="verlet"``
+  an unbiased ``propagate`` runs on per-atom Verlet lists instead
+  (``md.verlet``, plain PyTorch, as the reference's XLA path), rebuilt
+  every few steps and whenever an atom has moved skin/2; an overflowed
+  list warns.
+- ``"plain"``: at most 64 atoms with OBC2, constraints, Ewald / PME or
+  virtual sites.
   The recursion over autograd ``force_flat``, as the reference runs it on
   a TPU (no kernel there).
 - ``"dense"``: every other system with dense pairs: periodic ones above
@@ -80,7 +85,12 @@ chain-major; the reference's split into a fused and a staged program
 (its v5e program limits) has no counterpart: one path with the same
 semantics.
 
-Virtual sites (TIP4P), LJPME and a barostat are not ported.
+Virtual sites (the TIP4P-Ew M point of ``water_model="tip4pew"``,
+``md.vsites``) have an integrator mass of 1e30 amu, so the integrators
+leave them in place; the hybrid and neighbor routes place them before
+every force and hand their forces back to the parents (the plain and
+dense routes do so inside ``md.forces.force_flat``), and every output
+frame is placed.  NPT is ``md.barostat.npt_langevin``.
 """
 
 from __future__ import annotations
@@ -101,8 +111,10 @@ from ..md import langevin_kernel as LK
 from ..md import neighbor as NB
 from ..md.constraints import ConstraintSet
 from ..md.pdbio import read_pdb
-from ..md.solvate import solvate, water_triplets
+from ..md.solvate import solvate, water_msites, water_triplets
 from ..md.system import EWALD, PERIODIC, build_system
+from ..md.vsites import (attach_vsites, has_vsites, place_vsites_flat,
+                         redistribute_forces_flat)
 from .base import IsoSimulation
 
 
@@ -110,13 +122,15 @@ def force_route(system, constrained: bool = False) -> str:
     """The force route of ``system``: "fused" (kernel A), "hybrid"
     (kernel D + autograd bonded terms), "neighbor" (kernel E + analytic
     corrections and bonded terms), "plain" (autograd ``force_flat``, no
-    kernel, at most 64 atoms) or "dense" (the same above)."""
+    kernel, at most 64 atoms) or "dense" (the same above).  A system with
+    virtual sites never takes "fused": kernel A integrates every atom."""
     n = system.natoms
     if not system.dense_pairs:
         return "neighbor"
     if n <= LK.MAX_ATOMS:
         return ("fused" if system.implicit is None and not constrained
-                and system.method not in EWALD else "plain")
+                and system.method not in EWALD and not has_vsites(system)
+                else "plain")
     if n <= GB.MAX_ATOMS and system.method not in PERIODIC:
         return "hybrid"
     return "dense"
@@ -140,6 +154,14 @@ def solute_pairs(nsolute: int):
     return [(int(j), int(i)) for i, j in zip(ii, jj)]
 
 
+def integrator_masses3(system):
+    """Per-coordinate integrator masses: a massless virtual site weighs
+    1e30 amu, so every integrator leaves it in place (no force response,
+    no Maxwell-Boltzmann velocity) without the NaNs of an infinite mass."""
+    m = system.masses
+    return torch.repeat_interleave(torch.where(m > 0, m, 1e30), 3)
+
+
 class MDSimulation(IsoSimulation):
     """Batched molecular dynamics with the reference's interface.
 
@@ -151,7 +173,7 @@ class MDSimulation(IsoSimulation):
       a pair list, an atom list (all pairs among them) or a callable
       such as ``FeaturesAll()``
     - method/cutoff: nonbonded method ("auto": CutoffPeriodic with a box,
-      CutoffNonPeriodic without; "Ewald" or "PME" with a box)
+      CutoffNonPeriodic without; "Ewald", "PME" or "LJPME" with a box)
     - constraints: None, "HBonds", "HAngles" or "AllBonds" (SHAKE /
       RATTLE, ``md.constraints.ConstraintSet``; the langevin integrator
       only)
@@ -162,9 +184,13 @@ class MDSimulation(IsoSimulation):
       NaCl); the default features become solute pairs only
     - rigidwater: constrain the waters (SHAKE / RATTLE); their bond and
       angle terms are dropped from a sparse system
-    - water_model: "tip3p" (4-site models are not ported)
+    - water_model: "tip3p" or "tip4pew" (the M points become virtual
+      sites)
     - dense_pairs: True (dense (n, n) pair scales), False (O(n) cell-list
       engine, the "neighbor" route) or "auto" (switch at 4000 atoms)
+    - neighbor_mode: "cells" (kernel E's sweep every step) or "verlet"
+      (Verlet lists at cutoff + ``skin`` nm in an unbiased ``propagate``
+      on the neighbor route, ``md.verlet``)
     - bias: optional ``bias(x, t, sigma, F) -> u`` (sigma-scaled), e.g.
       ``optcontrol(iso)``: ``propagate`` then returns Girsanov-weighted
       ``WeightedSamples``
@@ -182,8 +208,14 @@ class MDSimulation(IsoSimulation):
                  ionic_strength: float = 0.0, rigidwater: bool = True,
                  water_model: str = "tip3p", dense_pairs="auto",
                  bias=None, integrator: str = "langevin",
-                 minimize: bool = False, constraints=None, device=None):
+                 minimize: bool = False, constraints=None,
+                 neighbor_mode: str = "cells", skin: float = 0.2,
+                 device=None):
         self.device = resolve_device(device)
+        if neighbor_mode not in ("cells", "verlet"):
+            raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
+        self.neighbor_mode = neighbor_mode
+        self.skin = float(skin)
         self.bias = bias
         if integrator not in ("langevin", "brownian"):
             raise ValueError(f"unknown integrator {integrator!r}")
@@ -202,7 +234,7 @@ class MDSimulation(IsoSimulation):
             ionic_strength=ionic_strength, rigidwater=rigidwater,
             water_model=water_model, dense_pairs=dense_pairs,
             integrator=integrator, minimize=minimize,
-            constraints=constraints)
+            constraints=constraints, neighbor_mode=neighbor_mode, skin=skin)
         self.steps = int(steps)
         self.temp = float(temp)
         self.friction = float(friction)
@@ -218,7 +250,11 @@ class MDSimulation(IsoSimulation):
                                    cutoff=cutoff, implicit=implicit,
                                    dense_pairs=dense_pairs,
                                    device=self.device)
-        self.masses3 = torch.repeat_interleave(self.system.masses, 3)
+        # 4-site waters: the M rows become virtual sites
+        vsi, vsp, vsw = water_msites(self.structure)
+        if len(vsi):
+            self.system = attach_vsites(self.system, vsi, vsp, vsw)
+        self.masses3 = integrator_masses3(self.system)
         if constraints is not None and integrator != "langevin":
             raise ValueError("constraints require the langevin integrator")
         wt = water_triplets(self.structure) if rigidwater else None
@@ -242,6 +278,8 @@ class MDSimulation(IsoSimulation):
                        else None)
         self.retries = 0
         self.overflows = 0     # neighbor-cell overflows seen (and regrown)
+        self.vplan = None      # the Verlet lists' plan, built at first use
+        self.verlet_diag = None   # the last Verlet run's diagnostics
         self._x0 = torch.as_tensor(self.structure.coords.reshape(-1),
                                    dtype=torch.float32, device=self.device)
         if minimize:
@@ -297,9 +335,9 @@ class MDSimulation(IsoSimulation):
         from ..md.minimize import minimize_energy
         x = self._x0 if x is None else torch.as_tensor(
             x, dtype=torch.float32, device=self.device)
-        return minimize_energy(
+        return place_vsites_flat(self.system, minimize_energy(
             lambda z: F.potential_energy_flat(self.system, z), x,
-            maxiter=maxiter)
+            maxiter=maxiter))
 
     # ---- propagation -------------------------------------------------------
 
@@ -308,10 +346,20 @@ class MDSimulation(IsoSimulation):
         if self.route == "fused":
             return LK.forces(self.plan, x)
         if self.route == "hybrid":
-            return GB.force_flat_hybrid(self.gbplan, x)
+            return self._sites(lambda z: GB.force_flat_hybrid(self.gbplan, z),
+                               x)
         if self.route == "neighbor":
-            return NB.force_flat_neighbor(self.system, x, self.nbplan)
+            return self._sites(lambda z: NB.force_flat_neighbor(
+                self.system, z, self.nbplan), x)
         return F.force_flat(self.system, x)
+
+    def _sites(self, fn, x):
+        """``fn``'s forces at ``x`` (B, 3N) with the virtual sites placed
+        first and their forces handed back to the parents."""
+        if not has_vsites(self.system):
+            return fn(x)
+        xp = place_vsites_flat(self.system, x)
+        return redistribute_forces_flat(self.system, fn(xp), xp)
 
     def _noise(self, gen, device):
         """The generator of the recursion's per-step noise: ``gen`` on
@@ -341,7 +389,30 @@ class MDSimulation(IsoSimulation):
                               self.friction, self.step, nsteps,
                               self._noise(gen, xs.device))
         v0 = self.random_velocities(gen, xs.shape)
+        if self.neighbor_mode == "verlet" and self.route == "neighbor":
+            return self._verlet(xs, v0, nsteps, gen)
         return self._integrate(xs, v0, nsteps, gen)[0]
+
+    def _verlet(self, xs, v0, nsteps, gen):
+        """LangevinMiddle on Verlet lists (``md.verlet``) for (B, 3N)
+        walkers; keeps the run's ``verlet_diag`` and warns when a list
+        overflowed (its forces miss pairs)."""
+        from ..md.verlet import VerletPlan, langevin_middle_verlet
+        if self.vplan is None:
+            self.vplan = VerletPlan(self.system, x0=self._x0, skin=self.skin)
+        x, _, diag = langevin_middle_verlet(
+            self.system, self.vplan, xs, v0, self.masses3, self.temp,
+            self.friction, self.step, nsteps, self._noise(gen, xs.device),
+            constraints=self.constraint_set,
+            wrap_force=lambda fn: (lambda z: self._sites(fn, z)))
+        self.verlet_diag = dict(max_disp=float(diag["max_disp"]),
+                                n_over=int(diag["n_over"]),
+                                rebuilds=diag["rebuilds"])
+        if self.verlet_diag["n_over"]:
+            warnings.warn(
+                f"verlet lists overflowed by {self.verlet_diag['n_over']} "
+                f"atoms: forces of this propagation miss pairs; raise K")
+        return x
 
     def biased_route(self, device) -> str:
         """How a biased propagation on ``device`` runs: "kernel" (the
@@ -405,7 +476,8 @@ class MDSimulation(IsoSimulation):
             p0 = self.random_velocities(gen, xs.shape) * self.masses3
             q, logw = self._girsanov(xs, p0, nsteps, gen)
             self._check_cell_overflow(q[:nw])
-            return WeightedSamples(q[:nw].reshape(n, nk, d),
+            q = place_vsites_flat(self.system, q[:nw])
+            return WeightedSamples(q.reshape(n, nk, d),
                                    torch.exp(logw[:nw]).reshape(n, nk))
         ys = self._run(xs, nsteps, gen)[:nw]
         for _ in range(3):
@@ -421,7 +493,7 @@ class MDSimulation(IsoSimulation):
                           f"retries; falling back to their start states")
             ys = torch.where(bad[:, None], xs[:nw], ys)
         self._check_cell_overflow(ys)
-        return ys.reshape(n, nk, d)
+        return place_vsites_flat(self.system, ys).reshape(n, nk, d)
 
     def _start(self, x0):
         """(B, 3N) start walkers: ``x0`` or the default state."""
@@ -446,7 +518,7 @@ class MDSimulation(IsoSimulation):
             frames.append(x)
         out = torch.stack(frames) if frames else x.new_empty((0,) + x.shape)
         self._check_cell_overflow(out, sample=out.shape[0] * out.shape[1])
-        return out
+        return place_vsites_flat(self.system, out)
 
     def trajectory(self, steps=None, saveevery=1, x0=None,
                    sample_velocities=True, resample_velocities=False,
@@ -466,7 +538,8 @@ class MDSimulation(IsoSimulation):
             qs, logws, _ = self._aboba(self.bias, x, p0, steps, gen,
                                        save_every=saveevery)
             self._check_cell_overflow(qs[:, 0], sample=16)
-            return WeightedSamples(qs[:, 0], torch.exp(logws[:, 0]))
+            return WeightedSamples(place_vsites_flat(self.system, qs[:, 0]),
+                                   torch.exp(logws[:, 0]))
         v = (self.random_velocities(gen, x.shape)
              if sample_velocities and not resample_velocities
              else torch.zeros_like(x))

@@ -117,11 +117,11 @@ def test_nocutoff_forces_match_jax(xs):
 
 
 def test_unported_method_raises():
-    """LJPME is not ported; Ewald and PME build, with the JAX package's
-    tables."""
-    with pytest.raises(NotImplementedError, match="LJPME"):
-        build_system(alanine_dipeptide_pdb(), method="LJPME", device="cpu")
-    for method in ("Ewald", "PME"):
+    """A method the port does not have is refused; Ewald, PME and LJPME
+    build, with the JAX package's tables."""
+    with pytest.raises(NotImplementedError, match="Shifted"):
+        build_system(alanine_dipeptide_pdb(), method="Shifted", device="cpu")
+    for method in ("Ewald", "PME", "LJPME"):
         ts = build_system(alanine_dipeptide_pdb(), method=method,
                           device="cpu")
         js = jax_build_system(alanine_dipeptide_pdb(), method=method)

@@ -341,7 +341,8 @@ def test_culled_tiles_cover_every_pair(sims, xb, kw, ewald):
     full = torch.as_tensor(tp.full, dtype=torch.long)
     acc = torch.zeros(tp.ncells * Cp, 3, dtype=torch.float64)
     n_pairs = 0
-    for islot, d, r2, qiqj, rmin, epsij, jslot in NK._pairs(sys, tp, rec):
+    for islot, d, r2, qiqj, rmin, epsij, _, jslot in NK._pairs(sys, tp,
+                                                               rec):
         c, a, cj, bj = islot // Cp, islot % Cp, jslot // Cp, jslot % Cp
         col = (full[c] == cj[:, None]).long().argmax(1)
         ok = torch.zeros_like(c, dtype=torch.bool)

@@ -59,8 +59,15 @@ def test_water_triplets_layout():
 
 
 def test_tip4p_is_not_ported():
-    with pytest.raises(NotImplementedError, match="virtual sites"):
-        solvate(read_pdb(ALA), padding=0.55, model="tip4pew")
+    """The 4-site model, once refused, builds the JAX package's structure
+    (O, H1, H2, M blocks); an unknown model is refused."""
+    got = solvate(read_pdb(ALA), padding=0.55, model="tip4pew")
+    want = jax_solvate(jax_read_pdb(ALA), padding=0.55, model="tip4pew")
+    assert got.atom_names == want.atom_names
+    assert got.elements == want.elements and "EP" in got.elements
+    np.testing.assert_allclose(got.coords, want.coords, atol=1e-12)
+    with pytest.raises(ValueError, match="water model"):
+        solvate(read_pdb(ALA), padding=0.55, model="tip5p")
 
 
 @pytest.fixture(scope="module")
