@@ -25,7 +25,20 @@ port's entry points, and the goldens after them:
   a lag and once a propagation; then, on another copy, the chi ensemble
   (``ChiEnsemble`` of 8 members, ``run(100)``, ``chi_std``,
   ``resample_uncertainty(ny=8, explore=0.25)``, ``run(50)``; one launch of
-  kernel A), timed against 8 sequential ``Iso.run(100)``;
+  kernel A), timed against 8 sequential ``Iso.run(100)``; then, on
+  further copies, the analysis layer (the reactive path as
+  ``examples/alanine.py`` writes it, the same ids from the dense min-plus
+  route on the card, the marginal free energy, the mutual information of
+  the 231 features, ``constrained_free_energy`` over 200 steps at B=8,
+  ``local_mean_force`` and ``reactionpath_ode`` at 11 x 5 RK4 steps:
+  kernel A's forces entry once a force evaluation) and the
+  enhanced-sampling simulators (``adaptive_metadynamics`` as
+  ``examples/enhanced_sampling.py --full``, ``run_metadynamics``,
+  ``run_both``, a gridded bias, the guided bridges of a two-output
+  learner over 0.2 ps, ``EffectiveSimulation`` with 1,000 steps and on
+  the two-output learner with 100: the forces entry once a biased step
+  and once an effective table, the LangevinMiddle kernel once a
+  propagation of new start points);
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
@@ -54,7 +67,8 @@ port's entry points, and the goldens after them:
   checkpointed after each, ``escalate_lag`` to 200 steps and a generation
   there, then one more generation twice: relaunched from the checkpoint
   through the tool's resume path and on the learner in memory, which must
-  agree: 1,600 steps of the same kernel).
+  agree: 1,600 steps of the same kernel), then the tool's reactive path
+  of the campaign's start points (no kernel).
 
 - the reference's explicit-solvent configuration
   (``examples/solvated_peptide.py``, full variant): ``peptide_pdb``
@@ -109,7 +123,7 @@ port's entry points, and the goldens after them:
   peptide (kernel E's dispersion branch against its plain version, 4
   walkers x 100 steps); the CMAP forces of the JAX test's toy chain
   against autograd and float64; the peptide on Verlet lists at the
-  default skin (4 walkers x 100 steps, lists rebuilt at the reference's
+  default skin (4 walkers x 50 steps, lists rebuilt at the reference's
   interval and whenever an atom has moved skin/2, no kernel; the plan's
   forces against kernel E's cell route).
 
@@ -123,7 +137,9 @@ port's entry points, and the goldens after them:
 - the toy goldens (``tests/test_golden.py``) at their sizes: Doublewell
   (> 0.99 against the exact eigenfunction, and its eigenvalue),
   Triplewell with a 3-D ISA chi (both slow eigenfunctions in its span,
-  R >= 0.95), Mueller-Brown (> 0.98), then a save/load round trip of the
+  R >= 0.95), Mueller-Brown (> 0.98), the reaction paths of the trained
+  Doublewell (``reactionpath_minimum``, ``reactionpath_ode``) and the
+  committor of the Triplewell's rates, then a save/load round trip of the
   trained Doublewell learner and ``run_girsanov`` on it.
 
 It times the kernels: E whole (its ``ms``, layout and sweep, as an MD
@@ -828,7 +844,7 @@ def cmap_verlet_phase(spdb, x_eq, stamp):
     """CMAP and Verlet lists on the card: the CMAP forces of the JAX test's
     toy chain (``tests/test_cmap.py``) against autograd and against
     float64 on the CPU; phase 12's peptide with ``neighbor_mode="verlet"``
-    at the default skin: one 100-step lag of 4 walkers on the lists (no
+    at the default skin: one 50-step lag of 4 walkers on the lists (no
     kernel: the reference's Verlet path is XLA), then the forces from
     the plan it built against kernel E's cell route (1e-5 of max|f|,
     ``tests/test_verlet.py``).  Returns the Verlet times."""
@@ -872,7 +888,7 @@ def cmap_verlet_phase(spdb, x_eq, stamp):
     require(rel_ag < 1e-5 and rel_64 < 1e-5, "CMAP forces")
 
     t1 = time.perf_counter()
-    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100,
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=50,
                            neighbor_mode="verlet")
     sim.setcoords(x_eq)
     torch.cuda.synchronize()
@@ -922,6 +938,327 @@ def cmap_verlet_phase(spdb, x_eq, stamp):
     return dict(t_sim=t_sim, t_list=t_list, t_prop=t_prop)
 
 
+def _learner_copy(iso, gen):
+    """A copy of the learner ``iso`` (its data, a copy of its weights and
+    optimiser state, its losses) that later phases do not see."""
+    import isokann_tpu_torch as itt
+    c = itt.Iso(data=iso.data, model=copy.deepcopy(iso.model), opt=iso.opt,
+                minibatch=iso.minibatch, gen=gen)
+    c.optimizer.load_state_dict(copy.deepcopy(iso.optimizer.state_dict()))
+    c.losses = list(iso.losses)
+    return c
+
+
+def _staged(times):
+    """A ``stage(name, fn)`` that runs ``fn()`` to a synchronise and keeps
+    its seconds in ``times``."""
+    import torch
+
+    def stage(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t1
+        return out
+    return stage
+
+
+def analysis_phase(iso, stamp):
+    """The analysis layer on a copy of the quickstart learner: the
+    reactive path as ``examples/alanine.py:28`` writes it (sigma 1,
+    maxjump 1; the host's scipy Bellman-Ford) and the same ids from the
+    dense min-plus route on the card; the marginal free energy; the MI of
+    the 231 features with chi; 8 levelset start points uniform in chi,
+    ``constrained_free_energy`` over 200 steps (2,000 cut to 200: 200
+    launches of kernel A's forces entry at B=8) and ``local_mean_force``
+    (one launch); ``reactionpath_ode`` at steps 11, substeps 5 (220
+    launches at B=1).  Kernel A's forces entry is the only kernel."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch import analysis as A
+    from isokann_tpu_torch.md import langevin_kernel as LK
+    from isokann_tpu_torch.md.pdbio import read_pdb_traj
+
+    for k in _counted_kernels():
+        k.launches = 0
+    aiso = _learner_copy(iso, 50)
+    sim = aiso.data.sim
+    ta, fl = {}, {}
+    stage = _staged(ta)
+
+    def forces(name, fn, want):
+        n0 = LK.forces.launches
+        out = stage(name, fn)
+        fl[name] = (LK.forces.launches - n0, want)
+        return out
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        path = os.path.join(out_dir, "reactive_path.pdb")
+        ids = stage("save_reactive_path", lambda: itt.save_reactive_path(
+            aiso, sigma=1.0, maxjump=1.0, out=path))
+        back = read_pdb_traj(path) if os.path.exists(path) else None
+    chi = aiso.chis()[:, 0]
+    dense = stage("reactive_path(device=True)", lambda: itt.reactive_path(
+        chi, aiso.data.coords, sigma=1.0, maxjump=1.0,
+        weights=sim.masses(), device=True))
+    host = stage("reactive_path(device=False)", lambda: itt.reactive_path(
+        chi, aiso.data.coords, sigma=1.0, maxjump=1.0,
+        weights=sim.masses()))
+    centers, F = stage("marginal_free_energy",
+                       lambda: itt.marginal_free_energy(aiso))
+    counts = np.histogram(chi.cpu().numpy(), bins=len(centers))[0]
+    mi = stage("mutual_information", lambda: itt.mutual_information(aiso))
+    xs = stage("sample_uniform_chi_coords",
+               lambda: A.sample_uniform_chi_coords(aiso, 8))
+    cchi, cF = forces("constrained_free_energy(steps=200)",
+                      lambda: itt.constrained_free_energy(
+                          aiso, xs, steps=200, gen=itt.make_generator(51)),
+                      200)
+    mchi, mF = forces("local_mean_force", lambda: A.local_mean_force(
+        aiso, xs, nbins=4), 1)
+    rp = forces("reactionpath_ode(steps=11, substeps=5)",
+                lambda: itt.reactionpath_ode(aiso, xs[4], steps=11,
+                                             substeps=5), 11 * 5 * 4)
+    rchi = aiso.chicoords(rp)[:, 0]
+    others = sum(k.launches for k in _counted_kernels()
+                 if k is not LK.forces)
+    f_an = LK.forces.launches
+    print(f"  analysis: reactive path {len(ids)} of {len(aiso.data)} frames "
+          f"(chi {float(chi[ids[0]]):.4f} -> {float(chi[ids[-1]]):.4f}), "
+          f"written and read back {None if back is None else back.shape}, "
+          f"dense min-plus route the same ids: {dense == ids}, host route "
+          f"{host == ids}; marginal F over {int((counts > 0).sum())} filled "
+          f"of {len(counts)} bins, max {float(F[counts > 0].max()):.3f} "
+          f"kJ/mol; MI max {float(mi.max()):.4f} (feature "
+          f"{int(mi.argmax())}) mean {float(mi.mean()):.4f}; constrained "
+          f"free energy at chi {np.round(cchi, 4).tolist()}: "
+          f"{np.round(cF, 3).tolist()} kJ/mol; local mean force at "
+          f"{np.round(mchi, 4).tolist()}: {np.round(mF, 3).tolist()}; "
+          f"reactionpath_ode chi {[round(float(c), 4) for c in rchi]}; "
+          f"langevin_forces launches {f_an} by stage {fl}; other kernels "
+          f"{others}; seconds "
+          f"{ {k: round(v, 3) for k, v in ta.items()} } {stamp}")
+    require(len(ids) >= 2 and back is not None
+            and back.shape == (len(ids), sim.dim)
+            and np.all(np.isfinite(back)),
+            "save_reactive_path: >= 2 frames, written and read back")
+    require(dense == ids and host == ids,
+            "the reactive path: the same ids on the card's min-plus route")
+    fin = counts > 0
+    require(np.all(np.isfinite(F[fin])) and np.all(np.isinf(F[~fin]))
+            and F[fin].min() == 0.0,
+            "marginal_free_energy: finite where filled, minimum 0")
+    require(mi.shape == (sim.natoms * (sim.natoms - 1) // 2,)
+            and bool(torch.isfinite(mi).all()),
+            "mutual_information: (231,), finite")
+    require(xs.shape == (8, sim.dim) and cchi.shape == (8,)
+            and np.all(np.diff(cchi) >= 0) and np.all(np.isfinite(cchi))
+            and np.all(np.isfinite(cF)),
+            "constrained_free_energy: finite, sorted by chi")
+    require(mchi.shape == (4,) and np.all(np.isfinite(mF)),
+            "local_mean_force finite")
+    require(rp.shape == (11, sim.dim) and bool(torch.isfinite(rp).all()),
+            "reactionpath_ode: (11, 66), finite")
+    require(all(got == want for got, want in fl.values())
+            and f_an == sum(v[0] for v in fl.values()),
+            "kernel A's forces entry once a force evaluation")
+    require(others == 0, "analysis runs no other kernel")
+    return dict(f_launches=f_an, t=ta)
+
+
+def analysis_goldens_phase(dw_iso, tw_iso, stamp):
+    """The analysis layer on the golden learners: ``reactionpath_minimum``
+    and ``reactionpath_ode`` on the Doublewell at the sizes and bars of
+    ``tests/test_analysis.py:157-177`` (autograd forces, no kernel; the
+    ODE at 5 RK4 substeps a frame, not 20), and
+    ``solve_committor`` on the Triplewell's 3 x 3 ``rates()`` with state
+    0 as A, state 2 as B.  ``rates()`` is the generator acting on chi
+    (Kchi = exp(tau Q) chi: its columns sum to zero); the coarse chain's
+    generator, whose rows sum to zero as the committor's boundary-row
+    surgery needs, is its transpose."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+
+    n0 = {k: k.launches for k in _counted_kernels()}
+    tg = {}
+    stage = _staged(tg)
+    x0 = torch.zeros(1, device=dw_iso.data.features.device)
+    path = stage("reactionpath_minimum", lambda: itt.reactionpath_minimum(
+        dw_iso, x0, steps=11, miniter=3))
+    pchi = dw_iso.chicoords(path)[:, 0].cpu().numpy()
+    ode = stage("reactionpath_ode", lambda: itt.reactionpath_ode(
+        dw_iso, x0 + 0.1, steps=21, orth=0.001, substeps=5))
+    ochi = dw_iso.chicoords(ode)[:, 0].cpu().numpy()
+    Q = np.asarray(tw_iso.rates(), np.float64).T
+    q = stage("solve_committor", lambda: itt.solve_committor(
+        Q, np.array([2.0, 0.0, 1.0])))
+    print(f"  analysis on the goldens: Doublewell reactionpath_minimum "
+          f"{tuple(path.shape)}, chi sweep {pchi.max() - pchi.min():.4f} "
+          f"(> 0.25); reactionpath_ode {tuple(ode.shape)}, chi rising on "
+          f"{int(np.sum(np.diff(ochi) > 0))} of 20 steps (>= 12); "
+          f"Triplewell generator (rates().T) {np.round(Q, 5).tolist()}, "
+          f"row sums {np.round(Q.sum(axis=1), 6).tolist()}, committor "
+          f"{q.tolist()}; seconds "
+          f"{ {k: round(v, 3) for k, v in tg.items()} } {stamp}")
+    require(path.shape[1] == 1 and bool(torch.isfinite(path).all())
+            and pchi.max() - pchi.min() > 0.25,
+            "reactionpath_minimum: chi sweeps more than 0.25")
+    require(ode.shape == (21, 1) and bool(torch.isfinite(ode).all())
+            and np.sum(np.diff(ochi) > 0) >= 12,
+            "reactionpath_ode: chi rises on >= 12 of 20 steps")
+    require(abs(q[0]) <= 1e-8 and abs(q[2] - 1.0) <= 1e-8
+            and 0.0 <= q[1] <= 1.0,
+            "committor: boundary values, interior in [0, 1]")
+    require(all(k.launches == n for k, n in n0.items()),
+            "the golden analysis runs no kernel")
+    return tg
+
+
+def enhanced_sampling_phase(iso, stamp):
+    """The enhanced-sampling simulators on copies of the quickstart
+    learner: ``examples/enhanced_sampling.py --full``'s step 3
+    (``adaptive_metadynamics(deposit=30, height=0.5, sigma=0.1)``: 100
+    biased ABOBA steps at B=1, 3 frames deposited) and ``run(100)``;
+    ``run_metadynamics(generations=1, iter=20, deposit=30)``;
+    ``run_both(generations=1, samples_kde=1, iter=20)``; a gridded bias
+    inside ``wt_free_energy``; bridges on a two-output learner over the
+    quickstart data (``run_bridges(generations=1, train=20, eps=10, T=0.2
+    ps)``, 1.0 ps cut to 0.2: 2 bridges x 100 steps); and
+    ``EffectiveSimulation(h=0.5, dt=1e-6, steps=1000)`` with its
+    trajectory and bursts, and over the two-output learner (its 2 x 2
+    Cholesky) a 100-step trajectory.  Kernel A: its forces entry once a
+    biased step and once for each effective table, its trajectory entry
+    once a propagation of new start points."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import langevin_kernel as LK
+
+    for k in _counted_kernels():
+        k.launches = 0
+    eiso = _learner_copy(iso, 60)
+    sim = eiso.data.sim
+    r0 = sim.retries
+    te, fl, grew = {}, {}, {}
+    stage = _staged(te)
+    want_lm = 0
+
+    def counted(name, fn, forces, props):
+        """``fn()`` staged, with its forces-entry launches against
+        ``forces`` and the data's growth; ``props`` propagations."""
+        nonlocal want_lm
+        n0, f0 = len(eiso.data), LK.forces.launches
+        out = stage(name, fn)
+        fl[name] = (LK.forces.launches - f0, forces)
+        grew[name] = len(eiso.data) - n0
+        want_lm += props
+        return out
+
+    x_last = eiso.data.coords[-1]
+    res = counted("adaptive_metadynamics", lambda: itt.adaptive_metadynamics(
+        eiso, deposit=30, height=0.5, sigma=0.1, gen=61), 100, 1)
+    drift = float(torch.linalg.norm(res["xnew"][-1] - x_last))
+    l0 = len(eiso.losses)
+    stage("run(100)", lambda: eiso.run(100))
+    require(len(eiso.losses) == l0 + 100 and np.all(np.isfinite(
+        eiso.losses)), "adaptive_metadynamics + run(100): finite losses")
+    counted("run_metadynamics", lambda: itt.run_metadynamics(
+        eiso, generations=1, iter=20, deposit=30), 100, 1)
+    counted("run_both", lambda: itt.run_both(
+        eiso, generations=1, samples_kde=1, iter=20), 100, 2)
+    grid = itt.MetadynamicsStateGridded(
+        eiso.chis(), [np.linspace(0.0, 1.0, 101)], 1.0, 0.1)
+    wtF = itt.MetadynamicsSimulation(eiso, mdstate=grid).wt_free_energy(
+        np.linspace(0.0, 1.0, 11)[:, None])
+    # bridges: a two-output learner on the quickstart data (no bootstrap)
+    biso = itt.Iso(data=itt.SimulationData.from_coords(
+        sim, iso.data.coords, iso.data.propcoords), nout=2, gen=62,
+        opt=itt.AdamRegularized())
+    stage("Iso(nout=2).run(50)", lambda: biso.run(50))
+    nb0, f0 = len(biso.data), LK.forces.launches
+    stage("run_bridges", lambda: itt.run_bridges(
+        biso, generations=1, train=20, eps=10.0, T=0.2,
+        gen=itt.make_generator(63)))
+    fl["run_bridges"] = (LK.forces.launches - f0, 200)
+    rows = biso.bridge_telemetry
+    want_lm += sum(r["n_new"] > 0 for r in rows)
+    f0 = LK.forces.launches
+    eff = stage("EffectiveSimulation", lambda: itt.EffectiveSimulation(
+        _learner_copy(iso, 64), h=0.5, dt=1e-6, steps=1000))
+    fl["EffectiveSimulation"] = (LK.forces.launches - f0, 1)
+    etraj = stage("trajectory()", lambda: eff.trajectory(gen=65))
+    eprop = stage("propagate(zs[:8], 4)", lambda: eff.propagate(
+        eff.kde.zs[:8], 4, gen=66))
+    f0 = LK.forces.launches
+    eff2 = stage("EffectiveSimulation(nout=2)",
+                 lambda: itt.EffectiveSimulation(biso, h=0.5, dt=1e-6,
+                                                 steps=100))
+    fl["EffectiveSimulation(nout=2)"] = (LK.forces.launches - f0, 1)
+    etraj2 = stage("trajectory(), K=2", lambda: eff2.trajectory(gen=67))
+    b2, L2 = eff2.b_and_sigma(eff2.kde.zs)
+    A2 = eff2.kde.marginal(eff2.kde.zs)[:, 2:].reshape(-1, 2, 2)
+    llt = float(torch.max(torch.abs(L2 @ L2.transpose(-1, -2) - A2))
+                / torch.max(torch.abs(A2)))
+    f_es, lm_es = LK.forces.launches, LK.langevin_middle.launches
+    want_lm += sim.retries - r0
+    others = sum(k.launches for k in _counted_kernels()
+                 if k not in (LK.forces, LK.langevin_middle))
+    print(f"  enhanced_sampling: adaptive_metadynamics drift {drift:.4f} nm "
+          f"(maxnorm 20), data grew {grew}; losses {eiso.losses[l0]:.4f} -> "
+          f"{eiso.losses[-1]:.4f}; gridded wt_free_energy "
+          f"{np.round(wtF.cpu().numpy(), 3).tolist()}; bridges {rows}, "
+          f"two-output data {nb0} -> {len(biso.data)}; effective table "
+          f"{tuple(eff.kde.fs.shape)}, trajectory {tuple(etraj.shape)} "
+          f"({float(etraj[0, 0]):.5f} -> {float(etraj[-1, 0]):.5f}), bursts "
+          f"{tuple(eprop.shape)}; two-output table "
+          f"{tuple(eff2.kde.fs.shape)}, trajectory {tuple(etraj2.shape)}, "
+          f"|L L^T - A| / |A| {llt:.2e}; langevin_forces launches {f_es} by stage "
+          f"{fl}; langevin_middle launches {lm_es} (expected {want_lm}, "
+          f"retries {sim.retries - r0}); other kernels {others}; seconds "
+          f"{ {k: round(v, 3) for k, v in te.items()} } {stamp}")
+    require(grew["adaptive_metadynamics"] == 3 and drift < 20.0
+            and res["xnew"].shape == (3, sim.dim)
+            and bool(torch.isfinite(res["xnew"]).all()),
+            "adaptive_metadynamics: 3 finite frames deposited, drift < 20")
+    require(grew["run_metadynamics"] == 3 and grew["run_both"] == 2
+            and np.all(np.isfinite(eiso.losses)),
+            "run_metadynamics and run_both: the data grows, losses finite")
+    require(wtF.shape == (11,) and bool(torch.isfinite(wtF).all())
+            and bool((wtF <= 0).all()),
+            "gridded wt_free_energy finite and <= 0")
+    require(len(rows) == 2 and all(r["frames"] == 100 and r["finite"]
+                                   and r["n_new"] <= min(10, r["n_transition"])
+                                   and (r["n_new"] > 0) == (r["n_transition"]
+                                                            > 0)
+                                   for r in rows)
+            and len(biso.data) == nb0 + sum(r["n_new"] for r in rows)
+            and np.all(np.isfinite(biso.losses)),
+            "bridges: both trajectories finite, the data grown by their "
+            "deposits")
+    require(eff.dim == 1 and eff.kde.fs.shape == (len(iso.data), 2)
+            and etraj.shape == (1000, 1) and eprop.shape == (8, 4, 1)
+            and bool(torch.isfinite(eff.kde.fs).all())
+            and bool(torch.isfinite(etraj).all())
+            and bool(torch.isfinite(eprop).all()),
+            "EffectiveSimulation: finite table, trajectory and bursts")
+    require(eff2.dim == 2 and eff2.kde.fs.shape == (len(biso.data), 6)
+            and etraj2.shape == (100, 2)
+            and bool(torch.isfinite(eff2.kde.fs).all())
+            and bool(torch.isfinite(etraj2).all())
+            and bool(torch.isfinite(b2).all()) and llt < 1e-5,
+            "EffectiveSimulation with two outputs: finite table and "
+            "trajectory, L L^T = A at the table points to 1e-5")
+    require(all(got == want for got, want in fl.values())
+            and f_es == sum(v[0] for v in fl.values()),
+            "kernel A's forces entry once a biased step and once for each "
+            "effective table")
+    require(lm_es == want_lm, "kernel A once a propagation of new points")
+    require(others == 0, "enhanced sampling runs no other kernel")
+    return dict(f_launches=f_es, lm_launches=lm_es, t=te)
+
+
 def main():
     watchdog()
     t_start = time.perf_counter()
@@ -934,6 +1271,7 @@ def main():
     import isokann_tpu_torch as itt
     from isokann_tpu_torch import goldens as G
     from isokann_tpu_torch import sample as S
+    from isokann_tpu_torch._device import noise_generator
     from isokann_tpu_torch import workflows as W
     from isokann_tpu_torch.md.fixtures import build_peptide, peptide_pdb
     from isokann_tpu_torch.md.minimize import minimize_energy
@@ -1284,11 +1622,7 @@ def main():
     # point (tests/test_torch_sample.py), so minimize=False runs after it.
     t0 = time.perf_counter()
     LK.langevin_middle.launches = 0
-    aiso = itt.Iso(data=iso.data, model=copy.deepcopy(iso.model),
-                   opt=iso.opt, minibatch=iso.minibatch, gen=30)
-    aiso.optimizer.load_state_dict(copy.deepcopy(
-        iso.optimizer.state_dict()))
-    aiso.losses = list(iso.losses)
+    aiso = _learner_copy(iso, 30)
     r0 = sim.retries
     ta, grew, want_ad = {}, {}, 0
 
@@ -1498,6 +1832,18 @@ def main():
             and dcorr.min() > 0.9,
             "Doublewell: members learn and agree after alignment")
     phase("ensemble", t0, " ".join(f"{k} {v:.3f}s" for k, v in te.items()))
+
+    # ---- 5e. analysis: reactive paths, free energy, MI, reaction paths -----
+    t0 = time.perf_counter()
+    aph = analysis_phase(iso, stamp)
+    phase("analysis", t0, " ".join(f"{k} {v:.3f}s" for k, v in
+                                   aph["t"].items()))
+
+    # ---- 5f. enhanced_sampling: metadynamics, bridges, effective dynamics --
+    t0 = time.perf_counter()
+    eph = enhanced_sampling_phase(iso, stamp)
+    phase("enhanced_sampling", t0, " ".join(f"{k} {v:.3f}s" for k, v in
+                                            eph["t"].items()))
 
     # ---- 6. Girsanov kernel against plain -----------------------------------
     t0 = time.perf_counter()
@@ -1972,6 +2318,26 @@ def main():
     stage("uninterrupted generation 3", lambda: tool.campaign(
         tiso, 4, telemetry=tel, start_gen=3, **gkw), 200, (200,))
     d_prod = GB.gb_force.launches
+    # the tool's analysis stage: the reactive path of the campaign's data
+    with tempfile.TemporaryDirectory() as rp_dir:
+        t1 = time.perf_counter()
+        tool.reactive_path_stage(tiso, rp_dir, results)
+        tp["reactive_path"] = time.perf_counter() - t1
+        rp_frames = (read_pdb_traj(os.path.join(rp_dir, "reactive_path.pdb"))
+                     if os.path.exists(os.path.join(
+                         rp_dir, "reactive_path.pdb")) else None)
+    print(f"  trpcage_production: reactive path of {len(tiso.data)} start "
+          f"points: {results.get('reactive_path_frames')} frames, error "
+          f"{results.get('reactive_path_error')!r}, read back "
+          f"{None if rp_frames is None else rp_frames.shape}")
+    require("reactive_path_error" not in results
+            and results.get("reactive_path_frames", 0) >= 2
+            and rp_frames is not None
+            and rp_frames.shape == (results["reactive_path_frames"],
+                                    tsim.dim),
+            "trpcage_production: the tool's reactive path, >= 2 frames")
+    require(GB.gb_force.launches == d_prod,
+            "the reactive path launches no kernel")
     rchi, uchi = riso.chis(), tiso.chis()
     chi_dev = float((rchi - uchi).abs().max())
     loss_dev = abs(riso.losses[-1] - tiso.losses[-1])
@@ -2163,7 +2529,7 @@ def main():
     t1 = time.perf_counter()
     temp_p = kinetic_temperature(lambda x, v: I.langevin_middle(
         plain_force, x, v, tsim.masses3, tsim.temp, tsim.friction,
-        tsim.step, TCH, tsim._noise(gp, dev)))
+        tsim.step, TCH, noise_generator(gp, dev)))
     t_tp = time.perf_counter() - t1
     print(f"  kinetic temperature B=256, steps {2 * TCH}-{4 * TCH}: hybrid "
           f"{temp_h:.2f} "
@@ -2185,7 +2551,7 @@ def main():
                                                               gn))
     ga = itt.make_generator(45)
     _, va = I.langevin_middle(sim.force, xT, vT, m3, sim.temp, sim.friction,
-                              sim.step, NT, sim._noise(ga, dev))
+                              sim.step, NT, noise_generator(ga, dev))
     temp_a = float((m3 * va * va).sum(dim=1).mean() / (sim.dim * KB))
     print(f"  kinetic temperature at 2 fs: trp-cage vacuum NoCutoff "
           f"{temp_n:.2f} K (B=256, {0.004 * TCH:.1f}-{0.008 * TCH:.1f} ps); "
@@ -2477,7 +2843,7 @@ def main():
 
     def temperature(force, gen):
         x, v, temps = x16, v16, []
-        noise = ssim._noise(gen, dev)
+        noise = noise_generator(gen, dev)
         for k in range(TSTEPS // 10):
             x, v = I.langevin_middle(force, x, v, ssim.masses3, ssim.temp,
                                      ssim.friction, ssim.step, 10, noise,
@@ -2882,7 +3248,7 @@ def main():
     p32 = vsim.random_velocities(itt.make_generator(62), x32.shape) \
         * vsim.masses3
     NSB = 20
-    g62 = vsim._noise(itt.make_generator(63), dev)
+    g62 = noise_generator(itt.make_generator(63), dev)
     I.aboba_girsanov(vsim.force, bias_t, x32, p32, vsim.masses3, vsim.temp,
                      vsim.friction, vsim.step, 2, g62)
     torch.cuda.synchronize()
@@ -3062,6 +3428,10 @@ def main():
     print(f"  Mueller-Brown nx=512 nk=32 run(3000): {tt_mb:.3f}s; corr "
           f"{mb:.5f} (> 0.98) {stamp}")
     require(mb > 0.98, "Mueller-Brown chi matches the eigenfunction")
+    t_ag = time.perf_counter()
+    tg_an = analysis_goldens_phase(dw_iso, tw["iso"], stamp)
+    phase("analysis_goldens", t_ag, " ".join(f"{k} {v:.3f}s" for k, v in
+                                             tg_an.items()))
     t1 = time.perf_counter()
     snap = os.path.join(ROOT, "build", "chip_smoke", "doublewell.pt")
     dw_iso.save(snap)
@@ -3093,7 +3463,8 @@ def main():
         "name": "langevin_middle", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
-        "launches": launches + a_lag + a_adapt + a_ens + a_golden,
+        "launches": (launches + a_lag + a_adapt + a_ens + eph["lm_launches"]
+                     + a_golden),
         "max_abs_err": lm_err,
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
@@ -3102,7 +3473,8 @@ def main():
         "name": "langevin_forces", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
-        "launches": f_launches, "max_abs_err": fae, "ms": fms[32],
+        "launches": f_launches + aph["f_launches"] + eph["f_launches"],
+        "max_abs_err": fae, "ms": fms[32],
         "plain_ms": fplain_ms, "bound_ms": fbms, "bound_by": fby,
         "library_ms": None,
     }, {

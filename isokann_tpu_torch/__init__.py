@@ -16,6 +16,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from ._device import make_generator, resolve_device  # noqa: E402
+from .analysis import (constrained_free_energy,  # noqa: E402
+                       marginal_free_energy, mutual_information,
+                       reactionpath_minimum, reactionpath_ode,
+                       reactive_path, save_reactive_path, solve_committor)
 from .data import (SimulationData, WeightedSamples, addcoords,  # noqa: E402
                    bootstrap, data_from_trajectories, data_from_trajectory,
                    exportdata, exportsorted, flattenfirst, flattenlast,
@@ -45,9 +49,17 @@ from .sample import (addextrapolates, dchidx, extrapolate,  # noqa: E402
                      kde_needles, pickclosest, picking, picking_aligned,
                      resample_kde_ash, subsample_uniformgrid)
 from .simulators.base import ExternalSimulation, IsoSimulation  # noqa: E402
+from .simulators.bridge import (GuidedLangevinBridge,  # noqa: E402
+                                LinearInterpolant, bridge_simplex,
+                                resample_picking_features, run_bridges)
+from .simulators.effective import (EffectiveSimulation,  # noqa: E402
+                                   KDEExpectation)
 from .simulators.langevin import (Diffusion, Doublewell,  # noqa: E402
                                   MuellerBrown, Triplewell)
 from .simulators.mdsim import MDSimulation  # noqa: E402
+from .simulators.metadynamics import (MetadynamicsSimulation,  # noqa: E402
+                                      MetadynamicsState,
+                                      MetadynamicsStateGridded)
 from .targets import (DomainError, Stabilize, TransformCross,  # noqa: E402
                       TransformGramSchmidt, TransformISA,
                       TransformLeftRight, TransformLeftRightHistory,
@@ -55,8 +67,9 @@ from .targets import (DomainError, Stabilize, TransformCross,  # noqa: E402
                       TransformSVD, TransformSVDRev, expectation, isotarget,
                       koopman, residual_linear, residual_ritz,
                       residual_subspace, shiftscale)
-from .workflows import (cktest, escalate_lag, lag_sweep,  # noqa: E402
-                        rates_resolved, run_girsanov, run_kde_dash,
+from .workflows import (adaptive_metadynamics, cktest,  # noqa: E402
+                        escalate_lag, lag_sweep, rates_resolved, run_both,
+                        run_girsanov, run_kde_dash, run_metadynamics,
                         training_lag_headroom)
 
 __version__ = "0.1.0"
@@ -104,32 +117,39 @@ def atom_indices(pdb: str, selector: str = "all"):
 
 __all__ = [
     "AdamRegularized", "ChiEnsemble", "Diffusion", "DomainError",
-    "Doublewell", "ExternalSimulation", "FeaturesAll", "FeaturesAngles",
-    "FeaturesAtoms", "FeaturesCoords", "FeaturesPairs", "FeaturesRandomPairs",
-    "FunctionLogger", "Iso", "IsoSimulation", "MDSimulation", "MLP",
-    "MuellerBrown", "NesterovRegularized", "OpenMMSimulation",
-    "SimulationData", "Stabilize", "TransformCross", "TransformGramSchmidt",
-    "TransformISA", "TransformLeftRight", "TransformLeftRightHistory",
-    "TransformPinv", "TransformPseudoInv", "TransformSVD",
-    "TransformSVDRev", "TransformShiftscale", "Triplewell",
-    "ValidationLogger", "ValidationLossLogger", "WeightedSamples",
+    "Doublewell", "EffectiveSimulation", "ExternalSimulation",
+    "FeaturesAll", "FeaturesAngles", "FeaturesAtoms", "FeaturesCoords",
+    "FeaturesPairs", "FeaturesRandomPairs", "FunctionLogger",
+    "GuidedLangevinBridge", "Iso", "IsoSimulation", "KDEExpectation",
+    "LinearInterpolant", "MDSimulation", "MLP", "MetadynamicsSimulation",
+    "MetadynamicsState", "MetadynamicsStateGridded", "MuellerBrown",
+    "NesterovRegularized", "OpenMMSimulation", "SimulationData",
+    "Stabilize", "TransformCross", "TransformGramSchmidt", "TransformISA",
+    "TransformLeftRight", "TransformLeftRightHistory", "TransformPinv",
+    "TransformPseudoInv", "TransformSVD", "TransformSVDRev",
+    "TransformShiftscale", "Triplewell", "ValidationLogger",
+    "ValidationLossLogger", "WeightedSamples", "adaptive_metadynamics",
     "addcoords", "addextrapolates", "alanine_dipeptide_pdb", "align",
     "aligned_rmsd", "aligntrajectory", "atom_indices", "autonet",
-    "bootstrap", "chi_exit_rate", "chicoords", "chis", "cktest", "cpu",
-    "data_from_trajectories", "data_from_trajectory", "dchidx", "densenet",
-    "device", "dihedral", "escalate_lag", "expectation", "exportdata",
-    "exportsorted", "extrapolate", "flatpairdists", "flattenfirst",
-    "flattenlast", "gpu", "growmodel", "isotarget", "kde_needles",
-    "koopman", "lag_sweep", "laggedtrajectory", "load", "localpdistinds",
-    "make_generator", "mergedata", "optcontrol", "pairdist", "pairnet",
-    "pairwise_aligned_rmsd", "pdists", "pickclosest", "picking",
-    "picking_aligned", "propagate", "rates", "rates_resolved",
-    "resample_kde", "resample_kde_ash", "resample_strat",
-    "resample_uncertainty", "residual_linear", "residual_ritz",
-    "residual_subspace", "resolve_device",
-    "restricted_localpdistinds", "run", "run_girsanov", "run_kde",
-    "run_kde_dash", "save", "shiftscale", "simulationtime", "smallnet",
-    "sqpairdist", "subsample", "subsample_inds", "subsample_random",
-    "subsample_uniformgrid", "trajectory", "trajectorydata_bursts",
-    "trajectorydata_linear", "training_lag_headroom", "validationloss",
+    "bootstrap", "bridge_simplex", "chi_exit_rate", "chicoords", "chis",
+    "cktest", "constrained_free_energy", "cpu", "data_from_trajectories",
+    "data_from_trajectory", "dchidx", "densenet", "device", "dihedral",
+    "escalate_lag", "expectation", "exportdata", "exportsorted",
+    "extrapolate", "flatpairdists", "flattenfirst", "flattenlast", "gpu",
+    "growmodel", "isotarget", "kde_needles", "koopman", "lag_sweep",
+    "laggedtrajectory", "load", "localpdistinds", "make_generator",
+    "marginal_free_energy", "mergedata", "mutual_information",
+    "optcontrol", "pairdist", "pairnet", "pairwise_aligned_rmsd", "pdists",
+    "pickclosest", "picking", "picking_aligned", "propagate", "rates",
+    "rates_resolved", "reactionpath_minimum", "reactionpath_ode",
+    "reactive_path", "resample_kde", "resample_kde_ash",
+    "resample_picking_features", "resample_strat", "resample_uncertainty",
+    "residual_linear", "residual_ritz", "residual_subspace",
+    "resolve_device", "restricted_localpdistinds", "run", "run_both",
+    "run_bridges", "run_girsanov", "run_kde", "run_kde_dash",
+    "run_metadynamics", "save", "save_reactive_path", "shiftscale",
+    "simulationtime", "smallnet", "solve_committor", "sqpairdist",
+    "subsample", "subsample_inds", "subsample_random",
+    "subsample_uniformgrid", "training_lag_headroom", "trajectory",
+    "trajectorydata_bursts", "trajectorydata_linear", "validationloss",
 ]

@@ -230,7 +230,8 @@ def triplewell_run(device, gen=0, iters=1500):
     """Triplewell ISA: the 32-unit densenet [2, 32, 32, 32, 3], nx=1024,
     nk=64, nout=3, minibatch 256, ``run(iters)``.  Returns dict(R2, R3:
     containment of psi_2 and psi_3 in span{1, chi}; rowsum_mean,
-    rowsum_std; wells: the argmax column of chi at the three wells)."""
+    rowsum_std; wells: the argmax column of chi at the three wells; iso:
+    the trained learner)."""
     from . import AdamRegularized, Iso, Triplewell
     from .analysis.msm import containment_R
     from .models import densenet
@@ -250,7 +251,7 @@ def triplewell_run(device, gen=0, iters=1500):
     cw = iso.chicoords(wells).cpu().numpy()
     return dict(R2=R2, R3=R3, rowsum_mean=float(rowsum.mean()),
                 rowsum_std=float(rowsum.std()),
-                wells=np.argmax(cw, axis=1).tolist())
+                wells=np.argmax(cw, axis=1).tolist(), iso=iso)
 
 
 def mueller_brown_run(device, gen=0, iters=3000):

@@ -30,6 +30,7 @@ import warnings
 import numpy as np
 import torch
 
+from .._device import noise_generator
 from . import integrators as I
 from .forces import _minus_grad, potential_energy, potential_energy_flat
 from .system import KB, MDSystem
@@ -221,7 +222,7 @@ def npt_langevin(sim, x0=None, gen=None, steps=1000, pressure=1.0,
         def block_box(box):
             return box
 
-    noise = sim._noise(gen, x.device)
+    noise = noise_generator(gen, x.device)
     v = I.maxwell_boltzmann(gen, sim.masses3, temp, x.shape)
     state = baro.init_state()
     boxes = []

@@ -25,7 +25,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .._device import draw_seed, make_generator, resolve_device
+from .._device import make_generator, noise_generator, resolve_device
 from ..data import WeightedSamples
 from ..md import integrators as I
 from .base import IsoSimulation
@@ -136,15 +136,6 @@ class Diffusion(IsoSimulation):
 
     # -- integration ------------------------------------------------------
 
-    def _noise(self, gen):
-        """The per-step noise generator: ``gen`` on the CPU, on the card a
-        CUDA generator seeded by one draw of ``gen``."""
-        if self.device.type == "cpu":
-            return gen
-        g = torch.Generator(device=self.device)
-        g.manual_seed(draw_seed(gen))
-        return g
-
     def _constants(self):
         """(masses, T) of the integrators' convention: m = 1 and
         T = sigma^2 / (2 kB), so that their noise amplitude is sigma."""
@@ -169,7 +160,7 @@ class Diffusion(IsoSimulation):
         n, d = x0.shape
         xs = torch.repeat_interleave(x0, nk, dim=0)
         nsteps = self.steps if steps is None else int(steps)
-        noise = self._noise(gen)
+        noise = noise_generator(gen, self.device)
         if self.bias is not None:
             masses, T = self._constants()
             ys, logw = I.brownian_girsanov(self.force, self.bias, xs, masses,
@@ -191,7 +182,7 @@ class Diffusion(IsoSimulation):
         x = torch.as_tensor(x0, dtype=torch.float32,
                             device=self.device).reshape(1, -1)
         inner = int(round(saveat / self.dt))
-        noise = self._noise(gen)
+        noise = noise_generator(gen, self.device)
         saves = [x[0]] if save_start else []
         for _ in range(int(round(T / saveat))):
             x = self._em(x, inner, noise)

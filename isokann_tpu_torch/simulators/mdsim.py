@@ -100,7 +100,7 @@ import warnings
 import numpy as np
 import torch
 
-from .._device import draw_seed, make_generator, resolve_device
+from .._device import make_generator, noise_generator, resolve_device
 from ..data import WeightedSamples, values
 from ..features import FeaturesAll, default_featurizer
 from ..md import forces as F
@@ -322,6 +322,10 @@ class MDSimulation(IsoSimulation):
         return autonet(n if n is not None else self.dim, nout=nout, gen=gen,
                        device=self.device, **kwargs)
 
+    def masses(self):
+        """Per-atom masses (N,) in amu (0 for a virtual site)."""
+        return self.system.masses
+
     def random_velocities(self, gen, shape):
         return I.maxwell_boltzmann(gen, self.masses3, self.temp, shape)
 
@@ -361,16 +365,6 @@ class MDSimulation(IsoSimulation):
         xp = place_vsites_flat(self.system, x)
         return redistribute_forces_flat(self.system, fn(xp), xp)
 
-    def _noise(self, gen, device):
-        """The generator of the recursion's per-step noise: ``gen`` on
-        the CPU, on the card a CUDA generator seeded from ``gen``; None
-        (no noise) for ``gen=None``."""
-        if gen is None or device.type == "cpu":
-            return gen
-        g = torch.Generator(device=device)
-        g.manual_seed(draw_seed(gen))
-        return g
-
     def _integrate(self, x, v, nsteps, gen):
         """LangevinMiddle for (B, 3N) walkers: kernel A's whole
         trajectories on the fused route (its plain version on the CPU),
@@ -379,7 +373,7 @@ class MDSimulation(IsoSimulation):
             return LK.langevin_middle(self.plan, x, v, nsteps, gen)
         return I.langevin_middle(self.force, x, v, self.masses3, self.temp,
                                  self.friction, self.step, nsteps,
-                                 self._noise(gen, x.device),
+                                 noise_generator(gen, x.device),
                                  self.constraint_set)
 
     def _run(self, xs, nsteps, gen):
@@ -387,7 +381,7 @@ class MDSimulation(IsoSimulation):
         if self.integrator == "brownian":
             return I.brownian(self.force, xs, self.masses3, self.temp,
                               self.friction, self.step, nsteps,
-                              self._noise(gen, xs.device))
+                              noise_generator(gen, xs.device))
         v0 = self.random_velocities(gen, xs.shape)
         if self.neighbor_mode == "verlet" and self.route == "neighbor":
             return self._verlet(xs, v0, nsteps, gen)
@@ -402,7 +396,7 @@ class MDSimulation(IsoSimulation):
             self.vplan = VerletPlan(self.system, x0=self._x0, skin=self.skin)
         x, _, diag = langevin_middle_verlet(
             self.system, self.vplan, xs, v0, self.masses3, self.temp,
-            self.friction, self.step, nsteps, self._noise(gen, xs.device),
+            self.friction, self.step, nsteps, noise_generator(gen, xs.device),
             constraints=self.constraint_set,
             wrap_force=lambda fn: (lambda z: self._sites(fn, z)))
         self.verlet_diag = dict(max_disp=float(diag["max_disp"]),
@@ -426,7 +420,7 @@ class MDSimulation(IsoSimulation):
         the system's constraints."""
         return I.aboba_girsanov(
             self.force, bias, xs, p0, self.masses3, self.temp,
-            self.friction, self.step, nsteps, self._noise(gen, xs.device),
+            self.friction, self.step, nsteps, noise_generator(gen, xs.device),
             constraints=self.constraint_set, **kwargs)
 
     def _girsanov(self, xs, p0, nsteps, gen):
@@ -607,7 +601,7 @@ class MDSimulation(IsoSimulation):
         v0 = self.random_velocities(gen, x0.shape)
         x, _ = I.langevin_em(self.force, x0, v0, self.masses3, self.temp,
                              self.friction, self.step, steps,
-                             self._noise(gen, x0.device),
+                             noise_generator(gen, x0.device),
                              perturbation=perturbation)
         return x
 
@@ -623,7 +617,7 @@ class MDSimulation(IsoSimulation):
         steps = self.steps if steps is None else int(steps)
         return I.brownian_girsanov(self.force, bias, x0, self.masses3,
                                    self.temp, self.friction, self.step,
-                                   steps, self._noise(gen, x0.device))
+                                   steps, noise_generator(gen, x0.device))
 
     def langevin_girsanov(self, x0=None, steps=None, bias=None, saveevery=1,
                           sigmascaled=True, gen=None):

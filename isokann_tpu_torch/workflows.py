@@ -1,7 +1,8 @@
-"""High-level workflow runners; counterpart of ``run_kde_dash``,
-``run_girsanov`` and the lag tools (``lag_sweep``, ``rates_resolved``,
-``cktest``, ``training_lag_headroom``, ``escalate_lag`` and their
-helpers) in ``isokann_tpu/workflows.py``.
+"""High-level workflow runners; counterpart of the metadynamics runners
+(``adaptive_metadynamics``, ``run_metadynamics``, ``run_both``),
+``run_kde_dash``, ``run_girsanov`` and the lag tools (``lag_sweep``,
+``rates_resolved``, ``cktest``, ``training_lag_headroom``,
+``escalate_lag`` and their helpers) in ``isokann_tpu/workflows.py``.
 
 The lag tools propagate on the simulation's device and bring chi to the
 host; their fits and bootstraps are numpy float64, as in the reference.
@@ -22,7 +23,66 @@ import torch
 from ._device import draw_seed, make_generator
 from .data import SimulationData, WeightedSamples, values
 from .md.integrators import optcontrol
+from .simulators.metadynamics import MetadynamicsSimulation
 from .targets import DomainError
+
+
+def _no_plots(plots, who):
+    if plots is not None:
+        raise NotImplementedError(f"{who}(plots=...) needs "
+                                  f"utils/plots.py, which is not ported")
+
+
+def adaptive_metadynamics(iso, deposit=None, x0=None, maxnorm=20.0,
+                          gen=None, **mdargs):
+    """One generation of chi-metadynamics sampling (reference
+    ``adaptive_metadynamics``, ``src/workflows.jl:16-24``): a biased
+    trajectory of max(1, deposit // lag) lags from ``x0`` (default the
+    last start point) under a new ``MetadynamicsSimulation(iso,
+    **mdargs)``, a frame saved every ``deposit`` steps (default one lag);
+    raises ``AssertionError`` when its last frame drifted ``maxnorm`` or
+    more from ``x0``, else adds the frames as start points.  Draws from
+    ``gen`` (default ``iso.gen``).  Returns dict(t, md, xnew)."""
+    sim = iso.data.sim
+    deposit = sim.steps if deposit is None else deposit
+    if x0 is None:
+        x0 = iso.data.coords[-1]
+    x0 = torch.as_tensor(x0, dtype=torch.float32,
+                         device=iso.data.coords.device)
+    md = MetadynamicsSimulation(iso, **mdargs)
+    t = md.trajectory(x0=x0, steps=sim.steps * max(1, deposit // sim.steps),
+                      saveevery=deposit, gen=iso.gen if gen is None else gen)
+    xnew = t.values
+    drift = float(torch.linalg.norm(xnew[-1] - x0.reshape(-1)))
+    if not drift < maxnorm:
+        raise AssertionError(f"metadynamics trajectory drifted "
+                             f"{drift:.2f} > maxnorm={maxnorm}")
+    iso.addcoords(xnew)
+    return dict(t=t, md=md, xnew=xnew)
+
+
+def run_metadynamics(iso, generations=100, iter=100, plots=None, **mdargs):
+    """``generations`` x (``adaptive_metadynamics(iso, **mdargs)`` ->
+    ``iso.run(iter)``) (reference ``run_metadynamics!``,
+    ``src/workflows.jl:4-14``).  ``plots=`` needs ``utils/plots.py``,
+    which is not ported, and raises."""
+    _no_plots(plots, "run_metadynamics")
+    for _ in range(generations):
+        adaptive_metadynamics(iso, **mdargs)
+        iso.run(iter)
+    return iso
+
+
+def run_both(iso, generations=100, samples_kde=1, iter=100, plots=None,
+             **mdargs):
+    """``generations`` x (one KDE generation of ``samples_kde`` points ->
+    one metadynamics generation), each trained ``iter`` iterations
+    (reference ``run_both!``, ``src/workflows.jl:51-56``)."""
+    _no_plots(plots, "run_both")
+    for _ in range(generations):
+        iso.run_kde(generations=1, kde=samples_kde, iter=iter)
+        run_metadynamics(iso, generations=1, iter=iter, **mdargs)
+    return iso
 
 
 def run_kde_dash(iso, generations=1, plots=None, **kwargs):
@@ -30,9 +90,7 @@ def run_kde_dash(iso, generations=1, plots=None, **kwargs):
     (reference ``run_kde_dash!``, ``src/workflows.jl:39-49``).  Returns
     ``plots``; collecting figures in a ``plots`` list needs
     ``utils/plots.py``, which is not ported."""
-    if plots is not None:
-        raise NotImplementedError("run_kde_dash(plots=...) needs "
-                                  "utils/plots.py, which is not ported")
+    _no_plots(plots, "run_kde_dash")
     for _ in range(generations):
         iso.run_kde(generations=1, **kwargs)
     return plots

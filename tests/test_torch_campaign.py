@@ -204,7 +204,8 @@ def test_main_runs_every_stage_and_a_relaunch_resumes(tool, tmp_path,
     for k in ("koopman_eigs", "rates_per_ps", "rates_resolved_rows",
               "cktest_rows", "cktest_ok"):
         assert k in res
-    assert "Queue 1 item 8" in res["reactive_path_error"]
+    assert "reactive_path_error" not in res
+    assert res["reactive_path_frames"] >= 0
     assert "Queue 1 item 9" in res["plot_error"]
     on_disk = json.loads((tmp_path / "results.json").read_text())
     assert on_disk["results"]["generations"] == 2

@@ -10,9 +10,10 @@ implied-timescale lag sweep on it (its rows written after every rung and
 reused by a relaunch), the production campaign at the recommended lag
 (checkpointed every ``--checkpoint-every`` generations; a relaunch into
 the same ``--out`` resumes from the checkpoint), then the analysis: the
-Koopman fit and rates, the resolved rates at two lags and the
-Chapman-Kolmogorov test.  The reactive path and the plots are not ported
-(each records so in the results).
+Koopman fit and rates, the resolved rates at two lags, the
+Chapman-Kolmogorov test and the reactive path of the data
+(``reactive_path.pdb``).  The plots are not ported (the results record
+so).
 
 Usage: python3 tools/run_trpcage_production_torch.py [--generations N]
        [--no-lag-sweep] [--steps S] [--out DIR] [--cpu]
@@ -52,6 +53,23 @@ def build_sim(steps):
                     maxiter=1500, device=DEVICE)
     return itt.MDSimulation(pdb=pdb, steps=steps, implicit="obc2",
                             device=DEVICE)
+
+
+def reactive_path_stage(iso, out, results):
+    """The reactive path through the learner's start points (sigma 0.5,
+    as the reference tool) written to ``out/reactive_path.pdb``; records
+    its ``reactive_path_frames`` in ``results``, or the
+    ``reactive_path_error`` it raised."""
+    from isokann_tpu_torch.analysis import save_reactive_path
+
+    try:
+        ids = save_reactive_path(
+            iso, sigma=0.5, out=os.path.join(out, "reactive_path.pdb"))
+        results["reactive_path_frames"] = (int(len(ids))
+                                           if ids is not None else 0)
+    except Exception as e:
+        results["reactive_path_error"] = str(e)
+    return results
 
 
 def save_campaign(iso, out, done, telemetry, results):
@@ -365,8 +383,7 @@ def main(generations=1000, iters=300, resamples=3, cutoff=2000,
         results["cktest_plot_error"] = (
             "plot_cktest not ported: ROADMAP Queue 1 item 9")
         checkpoint()
-    results["reactive_path_error"] = (
-        "save_reactive_path not ported: ROADMAP Queue 1 item 8")
+    reactive_path_stage(iso, out, results)
     results["plot_error"] = (
         "plot_training and plot_chi not ported: ROADMAP Queue 1 item 9")
     checkpoint()
