@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``isokann_tpu_torch/csrc`` with
-nvcc (one process per source, in parallel) and holds each against its
+nvcc (one process per source, in parallel, beside g++ for the host
+library ``csrc/host_ops.cpp``) and holds each against its
 plain PyTorch version on the card.  Then it drives seven paths through the
 port's entry points, and the goldens after them:
 
@@ -19,8 +20,8 @@ port's entry points, and the goldens after them:
   then, on a copy of that learner, the adaptive loop's growth:
   ``addcoords(20)`` (a lagged trajectory from the last point),
   ``picking_aligned`` of 10 burst ends by aligned RMSD, ``run_kde_dash``
-  (3 generations), 4 KDE needles in chi, ``addextrapolates`` (with and
-  without the levelset minimization) and ``exportsorted`` read back:
+  (3 generations), 4 KDE needles in chi, ``addextrapolates`` (without
+  the levelset minimization) and ``exportsorted`` read back:
   the data grows by exactly what each step adds, kernel A launches once
   a lag and once a propagation; then, on another copy, the chi ensemble
   (``ChiEnsemble`` of 8 members, ``run(100)``, ``chi_std``,
@@ -38,7 +39,12 @@ port's entry points, and the goldens after them:
   learner over 0.2 ps, ``EffectiveSimulation`` with 1,000 steps and on
   the two-output learner with 100: the forces entry once a biased step
   and once an effective table, the LangevinMiddle kernel once a
-  propagation of new start points);
+  propagation of new start points); between the two, the I/O and utility
+  layer on the quickstart's start points (``savecoords`` to PDB and DCD,
+  ``saveextrema``, read back three ways; dihedrals, the standard form and
+  RMSD coordinates against references; the reactive path's shortest path
+  by the host library against scipy; ``flops.mfu`` of kernel A; no
+  kernel);
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
@@ -175,6 +181,7 @@ LIMIT_S = 180          # watchdog: the whole run, kernel build included
 TB, TSTEPS = 4, 10     # solvated temperature witness: walkers, steps
 HP35 = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"    # villin headpiece
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()       # main() sets it; phases print from it
 
 
 def watchdog():
@@ -187,8 +194,9 @@ def watchdog():
 
 
 def phase(name, t0, msg=""):
-    print(f"phase {name}: ok {time.perf_counter() - t0:.2f}s {msg}",
-          flush=True)
+    now = time.perf_counter()
+    print(f"phase {name}: ok {now - t0:.2f}s {msg} [{now - T_START:.1f} s "
+          f"into main]", flush=True)
 
 
 def require(cond, what):
@@ -966,7 +974,7 @@ def _staged(times):
 def analysis_phase(iso, stamp):
     """The analysis layer on a copy of the quickstart learner: the
     reactive path as ``examples/alanine.py:28`` writes it (sigma 1,
-    maxjump 1; the host's scipy Bellman-Ford) and the same ids from the
+    maxjump 1; the host library's Bellman-Ford) and the same ids from the
     dense min-plus route on the card; the marginal free energy; the MI of
     the 231 features with chi; 8 levelset start points uniform in chi,
     ``constrained_free_energy`` over 200 steps (2,000 cut to 200: 200
@@ -1065,6 +1073,188 @@ def analysis_phase(iso, stamp):
             "kernel A's forces entry once a force evaluation")
     require(others == 0, "analysis runs no other kernel")
     return dict(f_launches=f_an, t=ta)
+
+
+def _np_dihedrals(x, quads):
+    """Dihedrals [rad] of index quadruplets ``quads`` (m, 4) of frames
+    ``x`` (n, 3N), float64 numpy (the atan2 form, independent of the
+    port's torch version)."""
+    import numpy as np
+    p = x.reshape(x.shape[0], -1, 3)[:, np.asarray(quads)]    # (n, m, 4, 3)
+    b1, b2, b3 = p[..., 1, :] - p[..., 0, :], p[..., 2, :] - p[..., 1, :], \
+        p[..., 3, :] - p[..., 2, :]
+    n1, n2 = np.cross(b1, b2), np.cross(b2, b3)
+    m1 = np.cross(n1, b2 / np.linalg.norm(b2, axis=-1, keepdims=True))
+    return np.arctan2(np.sum(m1 * n2, axis=-1), np.sum(n1 * n2, axis=-1))
+
+
+def io_utils_phase(iso, tpdb, a_rate, stamp):
+    """The I/O and utility layer on a copy of the quickstart learner (its
+    100 start points, made by kernel A; no kernel runs here):
+    ``savecoords`` to PDB and DCD and ``saveextrema``, read back by
+    ``load_trajectory``, ``readchemfile`` and ``LazyTrajectory``; the
+    backbone dihedrals on the card against float64 numpy; the standard
+    form, RMSD reaction coordinates and the C-alpha RMSD (on 8 frames of
+    the trp-cage structure of phase 2) of the frames against themselves
+    and a rotated, shifted copy; the reactive path's shortest path by the
+    host library and by scipy; ``flops.mfu`` of kernel A's phase-5 rate
+    against its ``bound_ms``.  Timed by the port's ``Timers``."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch import native
+    from isokann_tpu_torch.analysis import reactivepath as TR
+    from isokann_tpu_torch.md.langevin_kernel import step_ops
+    from isokann_tpu_torch.md.pdbio import read_pdb
+    from isokann_tpu_torch.md.topology import build_topology
+    from isokann_tpu_torch.ops.dihedrals import phi_psi_indices
+    from isokann_tpu_torch.utils import flops
+    from isokann_tpu_torch.utils.telemetry import Timers
+
+    for k in _counted_kernels():
+        k.launches = 0
+    t = Timers()
+    with t("copy"):
+        uiso = _learner_copy(iso, 55)
+        X = uiso.data.coords
+        dev = X.device
+        pdb = uiso.data.pdbfile
+        chi = uiso.chis()[:, 0]
+        order = torch.argsort(chi, stable=True)
+        want = itt.aligntrajectory(X[order]).cpu().numpy()
+        ext = X[torch.stack([chi.argmin(), chi.argmax()])].cpu().numpy()
+    with tempfile.TemporaryDirectory() as d:
+        paths = {e: os.path.join(d, f"sorted.{e}") for e in ("pdb", "dcd")}
+        with t("savecoords pdb + dcd"):
+            for p in paths.values():
+                itt.savecoords(p, uiso)
+        xp = os.path.join(d, "extrema.pdb")
+        with t("saveextrema"):
+            itt.saveextrema(xp, uiso)
+        with t("read back"):
+            back = {e: itt.load_trajectory(p) for e, p in paths.items()}
+            chem = {e: itt.readchemfile(p) for e, p in paths.items()}
+            lazy = itt.LazyTrajectory(paths["pdb"])
+            lazy_rows = np.stack([lazy[k] for k in range(len(lazy))])
+            lazy_slice = lazy[2:7]
+            xback = itt.readchemfile(xp)
+            x1 = itt.readchemfile(xp, frame=1)
+    with t("chi of the frames read back"):
+        chi_back = uiso.chicoords(torch.as_tensor(
+            back["dcd"], dtype=torch.float32, device=dev))[:, 0].cpu().numpy()
+    # a PDB holds 3 decimals of Angstrom: half a step is 5e-5 nm, and the
+    # float32 coordinates add up to 1e-6 nm
+    PDB_TOL = 5e-5 + 1e-6
+    dcd_err = float(np.abs(back["dcd"] - want).max())
+    pdb_err = float(np.abs(back["pdb"] - want).max())
+    ext_err = float(np.abs(xback - ext).max())
+
+    # dihedrals on the card against float64 numpy
+    with t("phi_psi"):
+        phi, psi = itt.phi_psi(X, pdb)
+        torch.cuda.synchronize()
+    phis, psis = phi_psi_indices(build_topology(read_pdb(pdb)))
+    xh = X.double().cpu().numpy()
+
+    def wrapped(a, b):
+        return float(np.abs((a - b + np.pi) % (2 * np.pi) - np.pi).max())
+
+    ang_err = max(wrapped(phi.cpu().numpy(), _np_dihedrals(xh, phis)),
+                  wrapped(psi.cpu().numpy(), _np_dihedrals(xh, psis)))
+
+    # rigid-motion checks: the frames against themselves and against a
+    # rotated, shifted copy
+    rng = np.random.default_rng(21)
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    rot = q * np.sign(np.diag(r))
+    rot = rot if np.linalg.det(rot) > 0 else -rot
+    rot = torch.as_tensor(rot, dtype=torch.float32, device=dev)
+    shift = torch.tensor([0.3, -0.2, 0.5], device=dev)
+
+    def moved(x):
+        n = x.shape[0]
+        return ((x.reshape(n, -1, 3) @ rot.T) + shift).reshape(n, -1)
+
+    with t("standardform, ReactionCoordsRMSD"):
+        sf = itt.standardform(X)
+        sf2 = itt.standardform(moved(X))
+        rc = itt.ReactionCoordsRMSD(X[:3])
+        rc1, rc2 = rc(X), rc(moved(X))
+        torch.cuda.synchronize()
+    sf_err = max(float(itt.aligned_rmsd(X, sf).max()),
+                 float((itt.align(sf[0], sf2) - sf).abs().max()),
+                 float((sf[0].reshape(-1, 3)
+                        - (X[0].reshape(-1, 3)
+                           - X[0].reshape(-1, 3).mean(0))).abs().max()))
+    rc_err = max(float(torch.diagonal(rc1[:3]).abs().max()),
+                 float((rc2 - rc1).abs().max()))
+    tx = torch.as_tensor(read_pdb(tpdb).coords.reshape(-1),
+                         dtype=torch.float32, device=dev)
+    tfr = tx[None] + torch.as_tensor(
+        rng.normal(scale=0.02, size=(8, tx.numel())), dtype=torch.float32,
+        device=dev)
+    with t("ca_rmsd"):
+        ca1 = itt.ca_rmsd(tfr, tfr[0], tpdb, tpdb)
+        ca2 = itt.ca_rmsd(moved(tfr), tfr[0], tpdb, tpdb)
+        torch.cuda.synchronize()
+    ca_err = max(float(ca1[0].abs()), float((ca2 - ca1).abs().max()))
+
+    # the reactive path's graph: the host library's route against scipy's
+    chi_np = chi.cpu().numpy()
+    from_, to = TR.fromto(TR.QuantilePath(0.05), chi_np)
+    i, j, cost = TR.pair_costs(X, chi_np, sigma=1.0, maxjump=1.0,
+                               weights=uiso.data.sim.masses())
+    with t("shortestpath_sparse (host library)"):
+        ids_native = TR.shortestpath_sparse(len(chi_np), i, j, cost, from_, to)
+    with t("shortestpath_sparse (scipy)"):
+        ids_scipy = TR._shortestpath_scipy(len(chi_np), i, j, cost, from_, to)
+
+    # kernel A's phase-5 rate through flops.mfu against its bound
+    plan, BL, NL, msL, bL = a_rate
+    u = flops.mfu(flops.fused_md_flops(plan), BL * NL / (msL * 1e-3))
+    mfu_rel = abs(u["pct_of_bound"] - bL / msL) / (bL / msL)
+    others = sum(k.launches for k in _counted_kernels())
+    print(f"  io_utils: savecoords {len(want)} frames, chi-sorted and "
+          f"aligned: DCD max err {dcd_err:.2e} nm (tol 1e-6), PDB "
+          f"{pdb_err:.2e} nm (tol 5.1e-5), chi read back min step "
+          f"{float(np.diff(chi_back).min()):.2e} (tol -1e-5); readchemfile "
+          f"= load_trajectory, LazyTrajectory rows and slice equal; "
+          f"saveextrema {xback.shape} err {ext_err:.2e} nm (tol 5.1e-5); "
+          f"phi/psi "
+          f"{tuple(phi.shape)}+{tuple(psi.shape)} on {phi.device} against "
+          f"float64 numpy {ang_err:.2e} rad (tol 1e-4); standardform "
+          f"{sf_err:.2e}, ReactionCoordsRMSD {rc_err:.2e}, ca_rmsd "
+          f"({len(tfr)} trp-cage frames) {ca_err:.2e} nm (tol 1e-5); "
+          f"shortest path {len(ids_native)} ids, host library = scipy: "
+          f"{ids_native == ids_scipy}; flops.mfu of A at B={BL} x{NL}: "
+          f"{u['pct_of_bound']:.4%} of {u['bound']} ({step_ops(plan):.0f} "
+          f"operations a walker-step), bound_ms/ms {bL / msL:.4%}, rel "
+          f"diff {mfu_rel:.1e} (tol 1e-6); host library built in "
+          f"{native.build_seconds:.2f}s (phase 2); kernel launches "
+          f"{others}; {t.report().replace(chr(10), '; ')} {stamp}")
+    require(back["dcd"].shape == back["pdb"].shape == want.shape
+            and dcd_err < 1e-6 and pdb_err < PDB_TOL,
+            "savecoords: DCD within 1e-6 nm, PDB within 5.1e-5 nm")
+    require(np.all(np.diff(chi_back) >= -1e-5),
+            "savecoords: chi non-decreasing along the file")
+    require(all(np.array_equal(chem[e], back[e]) for e in back)
+            and np.array_equal(lazy_rows, back["pdb"])
+            and np.array_equal(lazy_slice, back["pdb"][2:7])
+            and len(lazy) == len(want),
+            "readchemfile and LazyTrajectory equal load_trajectory")
+    require(xback.shape == (2, X.shape[1]) and ext_err < PDB_TOL
+            and np.array_equal(x1, xback[1]),
+            "saveextrema: the chi minimum and maximum")
+    require(phi.device == dev and ang_err < 1e-4,
+            "phi_psi on the card within 1e-4 rad of float64")
+    require(sf_err < 1e-5 and rc_err < 1e-5 and ca_err < 1e-5,
+            "standardform, ReactionCoordsRMSD, ca_rmsd: 0 within 1e-5 nm")
+    require(len(ids_native) >= 2 and ids_native == ids_scipy,
+            "shortestpath_sparse: the host library's ids = scipy's")
+    require(u["bound"] == "fp32" and mfu_rel < 1e-6,
+            "flops.mfu of kernel A = bound_ms / ms")
+    require(others == 0, "io_utils launches no kernel")
+    return dict(t=dict(t.total), seconds=sum(t.total.values()))
 
 
 def analysis_goldens_phase(dw_iso, tw_iso, stamp):
@@ -1260,16 +1450,30 @@ def enhanced_sampling_phase(iso, stamp):
 
 
 def main():
+    global T_START
     watchdog()
-    t_start = time.perf_counter()
+    t_start = T_START = time.perf_counter()
     import numpy as np
     import torch
+    t_torch = time.perf_counter() - t_start
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # The first optimiser imports torch._dynamo (the _disable_dynamo
+    # wrappers of torch.optim): seconds of imports on the card's host,
+    # made on a thread while the port imports and phases 1-2 run.
+    dynamo_s = []
+
+    def import_dynamo():
+        t1 = time.perf_counter()
+        import torch._dynamo  # noqa: F401
+        dynamo_s.append(time.perf_counter() - t1)
+    dynamo = threading.Thread(target=import_dynamo)
+    dynamo.start()
     sys.path.insert(0, ROOT)
     import isokann_tpu_torch as itt
     from isokann_tpu_torch import goldens as G
+    from isokann_tpu_torch import native
     from isokann_tpu_torch import sample as S
     from isokann_tpu_torch._device import noise_generator
     from isokann_tpu_torch import workflows as W
@@ -1288,6 +1492,7 @@ def main():
     from isokann_tpu_torch.md.integrators import KB
     from isokann_tpu_torch.ops import pairdists_kernel as PK
     dev = torch.device("cuda")
+    t_port = time.perf_counter() - t_start - t_torch
 
     # ---- 1. device -------------------------------------------------------
     t0 = time.perf_counter()
@@ -1299,9 +1504,11 @@ def main():
     kind = torch.cuda.get_device_name(0)
     stamp = f"[{smi}]"
     phase("device", t0, f"{kind}, torch {torch.__version__}, "
-                        f"CUDA {torch.version.cuda}")
+                        f"CUDA {torch.version.cuda}; imports: torch "
+                        f"{t_torch:.2f}s, the port {t_port:.2f}s")
 
-    # ---- 2. build: one nvcc per source, all started together ---------------
+    # ---- 2. build: one nvcc per source and g++ for the host library, all
+    # started together ----------------------------------------------------
     # While nvcc runs, the three peptides of phases 9, 12 and 15 are built
     # and minimized (FIRE over autograd, its steps replayed from a CUDA
     # graph: no hand-written kernel); their seconds are reported in those
@@ -1311,11 +1518,12 @@ def main():
     spdb = os.path.join(ROOT, "build", "chip_smoke", "solvated_peptide.pdb")
     vpdb = os.path.join(ROOT, "build", "chip_smoke", "villin.pdb")
     os.makedirs(os.path.dirname(pdb), exist_ok=True)
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = [pool.submit(k.lib) for k in (LK.langevin_middle,
                                              GK.aboba_girsanov, GB.gb_force,
                                              NBK.neighbor_sweep,
                                              PK.sqpairdist_fwd)]
+        jobs.append(pool.submit(native.lib))
         t1 = time.perf_counter()
         peptide_pdb("NLYIQWLKDGGPSSGRPPPS", pdb, minimize=True,
                     maxiter=1500, implicit="obc2")
@@ -1350,6 +1558,10 @@ def main():
         require(fire_err < 1e-5, "FIRE on the CUDA graph = the eager loop")
         for job in jobs:
             job.result()
+    t1 = time.perf_counter()
+    dynamo.join()
+    t_wait_dynamo = time.perf_counter() - t1
+    require(dynamo_s, "torch._dynamo imported")
     LK.forces.lib()
     NBK.neighbor_layout.lib()
     GK.chi_grad.lib()
@@ -1368,9 +1580,12 @@ def main():
                        f"{GK.aboba_girsanov.build_seconds:.2f}s, gb_force "
                        f"{GB.gb_force.build_seconds:.2f}s, neighbor_sweep "
                        f"{NBK.neighbor_sweep.build_seconds:.2f}s, sqpairdist "
-                       f"{PK.sqpairdist_fwd.build_seconds:.2f}s (parallel), "
+                       f"{PK.sqpairdist_fwd.build_seconds:.2f}s, g++ "
+                       f"host_ops {native.build_seconds:.2f}s (parallel), "
                        f"peptides {t_min:.2f}s + {ts_pep:.2f}s + "
-                       f"{tv_pep:.2f}s meanwhile")
+                       f"{tv_pep:.2f}s meanwhile; torch._dynamo imported "
+                       f"{dynamo_s[0]:.2f}s meanwhile "
+                       f"({t_wait_dynamo:.2f}s waited)")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -1619,7 +1834,7 @@ def main():
     # chi's extrema, then the chi-sorted export.  extrapolate's default
     # levelset minimization (fixed-step gradient descent at lr 1e-5)
     # diverges on thermal alanine frames in both packages and keeps no
-    # point (tests/test_torch_sample.py), so minimize=False runs after it.
+    # point (tests/test_torch_sample.py), so only minimize=False runs here.
     t0 = time.perf_counter()
     LK.langevin_middle.launches = 0
     aiso = _learner_copy(iso, 30)
@@ -1661,35 +1876,28 @@ def main():
         return iy
 
     iy = grow("kde_needles + addcoords", needles, 1)
-    # the minimizing run from one point a side: it keeps none (ROADMAP
-    # Queue 3 (p)), at ~0.4 s a try
-    for minimize, nx_ext in ((True, 1), (False, 2)):
-        with torch.no_grad():
-            ends = itt.flattenfirst(aiso.data.propcoords)
-            chi_ends = aiso.model(
-                itt.flattenfirst(aiso.data.propfeatures))[:, 0]
-        name = f"addextrapolates(minimize={minimize})"
-        n0 = len(aiso.data)
-        grow(name, lambda: S.addextrapolates(aiso, nx_ext, stepsize=0.01,
-                                             minimize=minimize),
-             lambda g: int(g > 0))
-        new = aiso.data.coords[n0:]
-        require(grew[name] <= 2 * nx_ext
-                and bool(torch.isfinite(new).all()),
-                f"{name}: at most {2 * nx_ext} finite points")
-        # each point's start: the burst end it lies nearest to; pushed
-        # down (chi lower) from the lower half of chi, up from the upper
-        start = torch.cdist(new, ends).argmin(dim=1)
-        chi_new = aiso.chicoords(new)[:, 0]
-        up = chi_ends[start] > chi_ends.median()
-        moved = torch.where(up, chi_new - chi_ends[start],
-                            chi_ends[start] - chi_new)
-        print(f"  {name}: {grew[name]} points, chi {chi_ends[start].tolist()}"
-              f" -> {chi_new.tolist()}")
-        require(bool((moved > 0).all()), f"{name}: chi moved the way each "
-                                         f"point was pushed")
-    require(grew["addextrapolates(minimize=False)"] == 4,
-            "extrapolate without minimization keeps 2 n points")
+    with torch.no_grad():
+        ends = itt.flattenfirst(aiso.data.propcoords)
+        chi_ends = aiso.model(itt.flattenfirst(aiso.data.propfeatures))[:, 0]
+    name = "addextrapolates(minimize=False)"
+    n0 = len(aiso.data)
+    grow(name, lambda: S.addextrapolates(aiso, 2, stepsize=0.01,
+                                         minimize=False),
+         lambda g: int(g > 0))
+    new = aiso.data.coords[n0:]
+    require(grew[name] == 4 and bool(torch.isfinite(new).all()),
+            "extrapolate without minimization keeps 2 n finite points")
+    # each point's start: the burst end it lies nearest to; pushed down
+    # (chi lower) from the lower half of chi, up from the upper
+    start = torch.cdist(new, ends).argmin(dim=1)
+    chi_new = aiso.chicoords(new)[:, 0]
+    up = chi_ends[start] > chi_ends.median()
+    moved = torch.where(up, chi_new - chi_ends[start],
+                        chi_ends[start] - chi_new)
+    print(f"  {name}: {grew[name]} points, chi {chi_ends[start].tolist()}"
+          f" -> {chi_new.tolist()}")
+    require(bool((moved > 0).all()), f"{name}: chi moved the way each point "
+                                     f"was pushed")
     with tempfile.TemporaryDirectory() as out_dir:
         spath = os.path.join(out_dir, "sorted.pdb")
         for name in ("exportsorted", "exportsorted again"):
@@ -1838,6 +2046,11 @@ def main():
     aph = analysis_phase(iso, stamp)
     phase("analysis", t0, " ".join(f"{k} {v:.3f}s" for k, v in
                                    aph["t"].items()))
+
+    # ---- 5e'. io_utils: trajectory files, molecular utilities, op counts -
+    t0 = time.perf_counter()
+    uph = io_utils_phase(iso, pdb, (plan, BL, NL, msL, bL), stamp)
+    phase("io_utils", t0, f"Timers {uph['seconds']:.3f}s")
 
     # ---- 5f. enhanced_sampling: metadynamics, bridges, effective dynamics --
     t0 = time.perf_counter()
@@ -2606,9 +2819,12 @@ def main():
     x1 = tsim.coords[None].contiguous()
     bonded_ms = cuda_ms(lambda: F.bonded_force_flat(tsim.system, x1),
                         reps=20)
+    bonded_ag_ms = cuda_ms(lambda: F._minus_grad(lambda z: F.bonded_energy(
+        tsim.system, z.reshape(1, -1, 3)), x1), reps=20)
     print(f"  gb_force plain B=256: {d_plain[256]:.3f} ms, B=1024: "
           f"{d_plain[1024]:.3f} ms; vacuum RF kernel B=1024: {v_ms:.4f} ms; "
-          f"bonded autograd B=1: {bonded_ms:.4f} ms {stamp}")
+          f"bonded forces B=1: analytic {bonded_ms:.4f} ms, autograd of the "
+          f"energy {bonded_ag_ms:.4f} ms {stamp}")
     phase("gb_timing", t0)
 
     # ---- 12. solvated path --------------------------------------------------
@@ -2783,7 +2999,7 @@ def main():
                       f"{p_.C}, B={b}")
     require(small.overflow(xq[:4]) > 0, "the capacity-300 plan drops atoms")
     for label, a in (("RF", None), ("erfc", NB.ewald_alpha(1.0, 5e-4))):
-        for b in ((1, 37, 64) if a is None else (1, 37)):
+        for b in ((1, 16, 64) if a is None else (1, 16)):
             xb = xq[:b].contiguous()
             f_k = NBK.neighbor_sweep(ssim.system, splan, xb, a)
             f_p, ms_p = timed(lambda: NBK.neighbor_sweep_plain(
@@ -2866,7 +3082,7 @@ def main():
           f"310 K; |diff| {abs(temp_k - temp_p) / temp_p:.3%} (tol 1%)")
     require(abs(temp_k - temp_p) / temp_p < 0.01,
             "kernel and plain routes at the same temperature")
-    phase("neighbor_vs_plain", t0, "RF and erfc at B=1/37/64, same bits, "
+    phase("neighbor_vs_plain", t0, "RF and erfc at B=1/16/64, same bits, "
                                    "non-Newton plan, noiseless steps, "
                                    "temperature")
 
@@ -3272,7 +3488,7 @@ def main():
     del bias_t
     share = (c_ms[32] + cb_ms[32]) / step_ms
     print(f"  biased hybrid step B=32: {step_ms:.3f} ms a step over {NSB} "
-          f"steps; of it the force (kernel D + bonded autograd) "
+          f"steps; of it the force (kernel D + analytic bonded) "
           f"{force_ms:.3f} ms, the bias (sqpairdist fwd, the 535 M-parameter "
           f"chi forward and backward, sqpairdist bwd) {bias_ms:.3f} ms, "
           f"sqpairdist fwd + bwd {c_ms[32] + cb_ms[32]:.4f} ms = "

@@ -71,6 +71,15 @@ from .workflows import (adaptive_metadynamics, cktest,  # noqa: E402
                         escalate_lag, lag_sweep, rates_resolved, run_both,
                         run_girsanov, run_kde_dash, run_metadynamics,
                         training_lag_headroom)
+from .utils import (LazyMultiTrajectory, LazyTrajectory,  # noqa: E402
+                    ReactionCoordsRMSD, autoplot, ca_rmsd, interactive_gui,
+                    livegui, load_trajectory, phi_psi, plot_chi,
+                    plot_training, save_trajectory, savecoords,
+                    saveextrema, scatter_ramachandran, serve_dashboard,
+                    standardform)
+# the reference re-exports its OpenMM wrapper module (src/ISOKANN.jl:56);
+# the counterpart here is the MD simulation module
+from .simulators import mdsim as OpenMM  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -107,6 +116,20 @@ def device(tree, dev=None):
 gpu = device
 
 
+def readchemfile(path, frame=None):
+    """A trajectory file (.npy, .pdb, .dcd) as a host (frames, 3N) array
+    [nm], or its frame ``frame`` (the reference's chemfiles reader)."""
+    traj = load_trajectory(path)
+    return traj if frame is None else traj[frame]
+
+
+def writechemfile(path, traj, top=None):
+    """Write ``traj`` (frames, 3N) [nm] to a trajectory file (.npy, .pdb
+    with ``top``, .dcd); returns ``path`` (the reference's chemfiles
+    writer)."""
+    return save_trajectory(path, traj, top=top)
+
+
 def atom_indices(pdb: str, selector: str = "all"):
     """Atom indices of a PDB file for a selector: "all", "heavy",
     "name CA" / "calpha" or "backbone"."""
@@ -116,40 +139,43 @@ def atom_indices(pdb: str, selector: str = "all"):
 
 
 __all__ = [
-    "AdamRegularized", "ChiEnsemble", "Diffusion", "DomainError",
-    "Doublewell", "EffectiveSimulation", "ExternalSimulation",
-    "FeaturesAll", "FeaturesAngles", "FeaturesAtoms", "FeaturesCoords",
-    "FeaturesPairs", "FeaturesRandomPairs", "FunctionLogger",
-    "GuidedLangevinBridge", "Iso", "IsoSimulation", "KDEExpectation",
+    "AdamRegularized", "ChiEnsemble", "Diffusion", "DomainError", "Doublewell",
+    "EffectiveSimulation", "ExternalSimulation", "FeaturesAll",
+    "FeaturesAngles", "FeaturesAtoms", "FeaturesCoords", "FeaturesPairs",
+    "FeaturesRandomPairs", "FunctionLogger", "GuidedLangevinBridge", "Iso",
+    "IsoSimulation", "KDEExpectation", "LazyMultiTrajectory", "LazyTrajectory",
     "LinearInterpolant", "MDSimulation", "MLP", "MetadynamicsSimulation",
     "MetadynamicsState", "MetadynamicsStateGridded", "MuellerBrown",
-    "NesterovRegularized", "OpenMMSimulation", "SimulationData",
-    "Stabilize", "TransformCross", "TransformGramSchmidt", "TransformISA",
-    "TransformLeftRight", "TransformLeftRightHistory", "TransformPinv",
-    "TransformPseudoInv", "TransformSVD", "TransformSVDRev",
+    "NesterovRegularized", "OpenMM", "OpenMMSimulation", "ReactionCoordsRMSD",
+    "SimulationData", "Stabilize", "TransformCross", "TransformGramSchmidt",
+    "TransformISA", "TransformLeftRight", "TransformLeftRightHistory",
+    "TransformPinv", "TransformPseudoInv", "TransformSVD", "TransformSVDRev",
     "TransformShiftscale", "Triplewell", "ValidationLogger",
     "ValidationLossLogger", "WeightedSamples", "adaptive_metadynamics",
     "addcoords", "addextrapolates", "alanine_dipeptide_pdb", "align",
-    "aligned_rmsd", "aligntrajectory", "atom_indices", "autonet",
-    "bootstrap", "bridge_simplex", "chi_exit_rate", "chicoords", "chis",
-    "cktest", "constrained_free_energy", "cpu", "data_from_trajectories",
-    "data_from_trajectory", "dchidx", "densenet", "device", "dihedral",
-    "escalate_lag", "expectation", "exportdata", "exportsorted",
-    "extrapolate", "flatpairdists", "flattenfirst", "flattenlast", "gpu",
-    "growmodel", "isotarget", "kde_needles", "koopman", "lag_sweep",
-    "laggedtrajectory", "load", "localpdistinds", "make_generator",
-    "marginal_free_energy", "mergedata", "mutual_information",
-    "optcontrol", "pairdist", "pairnet", "pairwise_aligned_rmsd", "pdists",
-    "pickclosest", "picking", "picking_aligned", "propagate", "rates",
-    "rates_resolved", "reactionpath_minimum", "reactionpath_ode",
-    "reactive_path", "resample_kde", "resample_kde_ash",
-    "resample_picking_features", "resample_strat", "resample_uncertainty",
-    "residual_linear", "residual_ritz", "residual_subspace",
-    "resolve_device", "restricted_localpdistinds", "run", "run_both",
-    "run_bridges", "run_girsanov", "run_kde", "run_kde_dash",
-    "run_metadynamics", "save", "save_reactive_path", "shiftscale",
-    "simulationtime", "smallnet", "solve_committor", "sqpairdist",
-    "subsample", "subsample_inds", "subsample_random",
-    "subsample_uniformgrid", "training_lag_headroom", "trajectory",
-    "trajectorydata_bursts", "trajectorydata_linear", "validationloss",
+    "aligned_rmsd", "aligntrajectory", "atom_indices", "autonet", "autoplot",
+    "bootstrap", "bridge_simplex", "ca_rmsd", "chi_exit_rate", "chicoords",
+    "chis", "cktest", "constrained_free_energy", "cpu",
+    "data_from_trajectories", "data_from_trajectory", "dchidx", "densenet",
+    "device", "dihedral", "escalate_lag", "expectation", "exportdata",
+    "exportsorted", "extrapolate", "flatpairdists", "flattenfirst",
+    "flattenlast", "gpu", "growmodel", "interactive_gui", "isotarget",
+    "kde_needles", "koopman", "lag_sweep", "laggedtrajectory", "livegui",
+    "load", "load_trajectory", "localpdistinds", "make_generator",
+    "marginal_free_energy", "mergedata", "mutual_information", "optcontrol",
+    "pairdist", "pairnet", "pairwise_aligned_rmsd", "pdists", "phi_psi",
+    "pickclosest", "picking", "picking_aligned", "plot_chi", "plot_training",
+    "propagate", "rates", "rates_resolved", "reactionpath_minimum",
+    "reactionpath_ode", "reactive_path", "readchemfile", "resample_kde",
+    "resample_kde_ash", "resample_picking_features", "resample_strat",
+    "resample_uncertainty", "residual_linear", "residual_ritz",
+    "residual_subspace", "resolve_device", "restricted_localpdistinds", "run",
+    "run_both", "run_bridges", "run_girsanov", "run_kde", "run_kde_dash",
+    "run_metadynamics", "save", "save_reactive_path", "save_trajectory",
+    "savecoords", "saveextrema", "scatter_ramachandran", "serve_dashboard",
+    "shiftscale", "simulationtime", "smallnet", "solve_committor",
+    "sqpairdist", "standardform", "subsample", "subsample_inds",
+    "subsample_random", "subsample_uniformgrid", "training_lag_headroom",
+    "trajectory", "trajectorydata_bursts", "trajectorydata_linear",
+    "validationloss", "writechemfile",
 ]

@@ -58,11 +58,14 @@ def dchidx(iso, x):
     return _value_and_grad(_chifun(iso), _coords(iso, x))[1]
 
 
-def minimize_levelset(x0, chi_fn, energy_fn, iterations=20, lr=1e-5):
+def minimize_levelset(x0, chi_fn, energy_fn, iterations=20, lr=1e-5,
+                      retract_every=1):
     """Projected gradient descent on the levelset {chi = chi(x0)}
     (reference ``minimize_levelset``, ``src/utils/minimumpath.jl:155-207``):
     each step moves along -grad U projected orthogonal to grad chi, then
-    retracts x += (chi(x0) - chi(x)) grad chi / |grad chi|^2."""
+    retracts x += (chi(x0) - chi(x)) grad chi / |grad chi|^2.
+    ``retract_every`` is accepted and unused, as in the JAX package: every
+    step retracts."""
     x = x0.detach()
     target = chi_fn(x).detach()
     for _ in range(iterations):

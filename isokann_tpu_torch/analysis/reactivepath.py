@@ -4,8 +4,9 @@ samples ordered by chi; counterpart of
 ``src/utils/reactivepath.jl``).
 
 The aligned RMSDs of the masked pairs run batched on the samples' device
-(``ops.align.aligned_rmsd``).  The shortest path runs on the host
-(scipy's sparse Bellman-Ford, ``shortestpath_sparse``) or, with
+(``ops.align.aligned_rmsd``).  The shortest path runs on the host (the
+host library's CSR Bellman-Ford, ``shortestpath_sparse``, as the JAX
+package; scipy's in ``_shortestpath_scipy``, its plain version) or, with
 ``device=True``, as dense min-plus iterations in torch on the samples'
 device (``bellman_ford_dense``).  Samples given as tensors stay on their
 device; other arrays go to the card unless the caller names another
@@ -157,10 +158,33 @@ def shortestchain(xs, xi, from_, to, sigma=1.0, minjump=0.0, maxjump=1.0,
 
 
 def shortestpath_sparse(n, i, j, w, sources, targets):
-    """Host shortest path on the sparse DAG by scipy's Bellman-Ford (the
-    costs may be negative): the best (source, target) pair's path, empty
-    when there is none (also for no source or no target, as the
-    reference's native CSR route)."""
+    """Host shortest path on the sparse DAG by the host library's CSR
+    Bellman-Ford (``native.bellman_ford_csr_native``; the costs may be
+    negative), as the JAX package routes it: the path to the nearest
+    target, empty when there is none (also for no source or no target).
+    ``_shortestpath_scipy`` is its plain version."""
+    from scipy.sparse import coo_matrix
+    from ..native import bellman_ford_csr_native
+
+    sources = np.asarray(sources)
+    targets = np.asarray(targets)
+    if len(sources) == 0 or len(targets) == 0:
+        return []
+    A = coo_matrix((w, (i, j)), shape=(n, n)).tocsr()
+    dist, parent = bellman_ford_csr_native(A.indptr, A.indices, A.data, n,
+                                           sources)
+    t = int(targets[np.argmin(dist[targets])])
+    if not np.isfinite(dist[t]):
+        return []
+    path = [t]
+    while parent[path[-1]] >= 0:
+        path.append(int(parent[path[-1]]))
+    return path[::-1]
+
+
+def _shortestpath_scipy(n, i, j, w, sources, targets):
+    """``shortestpath_sparse`` by scipy's Bellman-Ford: the best (source,
+    target) pair's path, empty when there is none."""
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import bellman_ford
 

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from ._device import make_generator
-from .iso import GraphedSteps, fused_target, pad_bursts
+from .iso import GraphedSteps, fused_target, host_to, pad_bursts
 from .models import ACTIVATIONS, MLP
 from .targets import DomainError
 
@@ -159,7 +159,7 @@ class ChiEnsemble(GraphedSteps):
             return self._step(xs, target, w, mask, n_true)
         scale = cap / n_true
         E = self.n_members
-        perm = self._permutations(cap)[:, :nb * bs].to(xs.device)
+        perm = host_to(self._permutations(cap)[:, :nb * bs], xs.device)
         ls = []
         for idx in perm.reshape(E, nb, bs).unbind(1):          # (E, bs)
             y = torch.gather(target, 1,

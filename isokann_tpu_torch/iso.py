@@ -63,6 +63,16 @@ from . import targets as T
 GRAPH_WARMUP = 3
 
 
+def host_to(t, device):
+    """The host tensor ``t`` on ``device``.  To the card through pinned
+    memory and without a sync: a copy from pageable memory synchronises
+    the stream, so that the host could not enqueue an epoch's steps
+    while the card runs the last."""
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def pad_bursts(ys, cap):
     """The bursts, and their Girsanov weights, padded to ``cap`` rows."""
     if isinstance(ys, WeightedSamples):
@@ -240,12 +250,13 @@ class Iso(GraphedSteps):
 
     ``Iso(data)`` or ``Iso(sim=sim, nx=100, nk=5)``; then ``run(n)``.
     ``target`` defaults to ``TransformShiftscale`` for a 1-D chi and
-    ``TransformISA`` for ``nout`` > 1; ``loggers`` are called during
-    ``run`` and ``validation`` data adds a ``ValidationLossLogger``."""
+    ``TransformISA`` for ``nout`` > 1 (``transform`` is another name for
+    it); ``loggers`` are called during ``run`` and ``validation`` data
+    adds a ``ValidationLossLogger``."""
 
     def __init__(self, data=None, sim=None, nx=100, nk=2, model=None,
                  opt=None, target=None, minibatch=100, nout=1, gen=None,
-                 loggers=None, validation=None):
+                 loggers=None, validation=None, transform=None):
         self.gen = make_generator(gen)
         if data is None:
             if sim is None:
@@ -264,6 +275,8 @@ class Iso(GraphedSteps):
         self.model = model.to(device)
         self.opt = opt if opt is not None else NesterovRegularized()
         self.optimizer = self.opt(self.model.parameters())
+        if target is None:
+            target = transform
         if target is None:
             target = (TransformShiftscale() if self.model.outputdim == 1
                       else TransformISA())
@@ -361,16 +374,20 @@ class Iso(GraphedSteps):
 
     # ---- training ---------------------------------------------------------
 
-    def run(self, n=1, epochs=1):
+    def run(self, n=1, epochs=1, showprogress=False):
         """n Koopman iterations x ``epochs`` epochs of SGD.  With loggers,
         the losses reach the host and the loggers run after each
         iteration (a host target) or every ``min(logevery)`` iterations
-        (a fused target)."""
+        (a fused target).  ``showprogress`` prints a progress line each
+        time the losses reach the host: after each iteration of a host
+        target (which syncs every iteration anyway), after each logger
+        chunk of a fused target."""
         fused = getattr(self.target, "fused", False)
         chunk = n
-        if self.loggers:
+        if self.loggers or (showprogress and not fused):
             chunk = (min([getattr(g, "logevery", 1) for g in self.loggers]
                          + [n]) if fused else 1)
+        t0 = time.perf_counter()
         done = 0
         while done < n:
             c = min(chunk, n - done)
@@ -384,7 +401,15 @@ class Iso(GraphedSteps):
             done += c
             for logger in self.loggers:
                 logger.log(self)
+            if showprogress:
+                self._progress(done, n, t0)
         return self
+
+    def _progress(self, done, n, t0):
+        dt = time.perf_counter() - t0
+        print(f"\r[run] {done}/{n} loss={self.losses[-1]:.4g} "
+              f"n_data={len(self.data)} {done / max(dt, 1e-9):.1f} it/s",
+              end="\n" if done == n else "", flush=True)
 
     def _record(self, losses):
         """Bring the device losses to the host (one transfer) and raise
@@ -450,7 +475,7 @@ class Iso(GraphedSteps):
             return self._step(xs, target, w, mask, n_true)
         scale = cap / n_true
         perm = torch.randperm(cap, generator=self.gen)[:nb * bs]
-        perm = perm.reshape(nb, bs).to(xs.device)
+        perm = host_to(perm.reshape(nb, bs), xs.device)
         ls = [self._step(xs[idx], target[idx], w, mask[idx] * scale, bs)
               for idx in perm]
         return torch.stack(ls).sum() * bs / cap
@@ -512,8 +537,8 @@ class Iso(GraphedSteps):
         save(path, self)
 
 
-def run(iso: Iso, n=1, epochs=1):
-    return iso.run(n, epochs)
+def run(iso: Iso, n=1, epochs=1, **kw):
+    return iso.run(n, epochs, **kw)
 
 
 def run_kde(iso: Iso, **kwargs):

@@ -20,9 +20,12 @@ from .pdbio import PDBStructure, write_pdb
 _FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "data")
 
 
-def alanine_dipeptide_pdb() -> str:
+def alanine_dipeptide_pdb(minimized=True) -> str:
     """Path to the bundled, energy-minimised alanine-dipeptide PDB
-    (``data/alanine-dipeptide.pdb`` at the repository root)."""
+    (``data/alanine-dipeptide.pdb`` at the repository root).  The JAX
+    package returns the bundled file whenever it exists, whatever
+    ``minimized`` says; so does this one, and it does not build the
+    structure anew."""
     path = os.path.abspath(os.path.join(_FIXTURE_DIR,
                                         "alanine-dipeptide.pdb"))
     if not os.path.exists(path):

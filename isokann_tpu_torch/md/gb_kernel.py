@@ -26,7 +26,9 @@ the bound.
   CUDA tensor launches the kernel or raises.  ``gb_force.launches``
   counts the launches.
 - ``force_flat_hybrid``: the kernel's forces plus the bonded terms (bonds,
-  angles, torsions) by autograd, as the reference's hybrid path.
+  angles, torsions), as the reference's hybrid path; the bonded forces are
+  analytic (``forces.bonded_force_flat``) where the reference takes them
+  by autograd.
 """
 
 from __future__ import annotations
@@ -574,7 +576,7 @@ gb_force = GBForce()
 
 def force_flat_hybrid(plan: GBPlan, xflat):
     """Full force on flat coordinates (..., 3A): ``gb_force`` for the
-    nonbonded (+ OBC2) part plus autograd of the bonded terms."""
+    nonbonded (+ OBC2) part plus the analytic bonded forces."""
     shape = xflat.shape
     xb = xflat.reshape(-1, shape[-1])
     f = gb_force(plan, xb) + bonded_force_flat(plan.system, xb)

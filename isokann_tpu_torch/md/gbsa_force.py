@@ -4,10 +4,11 @@ Counterpart of ``isokann_tpu/md/gbsa_force.py``: the scheme of OpenMM's
 GBSAOBC kernels, the direct r-derivative plus the Born-radius chain rule
 (dE/dB -> dB/dpsi -> dI/dr).  The per-pair descreening integral and its
 r-derivative are ``md.gb_kernel``'s (``_descreen``), the terms kernel D's
-plain version uses.  No route calls this module, as none does in the
-reference: it is the validated force math, held to autograd of
-``forces.nonbonded_energy`` + ``forces.gbsa_obc2_energy`` and to the JAX
-package.  Methods: NoCutoff and the reaction field (minimum image under
+plain version uses.  The port's "plain" and "dense" force routes
+(``simulators.mdsim``) take it under NoCutoff and the reaction field,
+where the reference takes autograd of the energy; it is held to autograd
+of ``forces.nonbonded_energy`` + ``forces.gbsa_obc2_energy`` and to the
+JAX package.  Methods: NoCutoff and the reaction field (minimum image under
 CutoffPeriodic); Ewald / PME raise.
 
 Coordinates (..., n, 3) in nm; forces in kJ/mol/nm.
@@ -104,9 +105,10 @@ def obc2_force(sys: MDSystem, x):
 
 
 def force_flat_analytic(sys: MDSystem, xflat):
-    """Analytic nonbonded (+ OBC2) forces plus the bonded terms by
-    autograd, on flat coordinates (..., 3N) -> (..., 3N): an alternative
-    to ``forces.force_flat`` for dense systems."""
+    """Analytic nonbonded (+ OBC2) forces plus the bonded terms
+    (``forces.bonded_force_flat``), on flat coordinates (..., 3N) ->
+    (..., 3N): an alternative to ``forces.force_flat`` for dense
+    systems."""
     shape = xflat.shape
     xb = xflat.reshape(-1, shape[-1])
     x3 = xb.reshape(xb.shape[0], sys.natoms, 3)

@@ -96,16 +96,27 @@ def langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt,
 
 def langevin_middle(force_fn: Callable, x0, v0, masses3, T, gamma, dt,
                     nsteps: int, gen: Optional[torch.Generator] = None,
-                    constraints=None):
+                    constraints=None, save_every: Optional[int] = None):
     """``nsteps`` LangevinMiddle steps for a batch (B, 3N); returns (x, v).
     ``gen=None`` runs the noiseless recursion; ``constraints`` as in
-    ``langevin_middle_step``."""
+    ``langevin_middle_step``.  With ``save_every`` it runs
+    ``nsteps // save_every`` blocks of ``save_every`` steps and returns
+    (the positions at each block's end (nblocks, B, 3N), (x, v)), as the
+    JAX package does."""
+    every = None if save_every is None else int(save_every)
+    n = int(nsteps) if every is None else int(nsteps) // every * every
     x, v = x0, v0
     xlo = torch.zeros_like(x0) if constraints is not None else None
-    for _ in range(int(nsteps)):
+    saves = []
+    for k in range(n):
         x, xlo, v = _langevin_middle_step(force_fn, x, v, masses3, T, gamma,
                                           dt, gen, constraints, xlo)
-    return x, v
+        if every is not None and (k + 1) % every == 0:
+            saves.append(x)
+    if every is None:
+        return x, v
+    saves = torch.stack(saves) if saves else x0.new_zeros((0, *x0.shape))
+    return saves, (x, v)
 
 
 def constants(masses3, T, gamma, overdamped: bool):

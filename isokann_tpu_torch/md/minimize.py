@@ -13,10 +13,12 @@ import torch
 
 
 def minimize_energy(energy_fn, x0, maxiter: int = 500, dt0: float = 1e-4,
-                    dtmax: float = 1e-2, graph: bool = False):
+                    dtmax: float = 1e-2, tol: float = 10.0,
+                    graph: bool = False):
     """FIRE minimization of ``energy_fn`` (flat coords (..., D) -> (...))
     for ``maxiter`` steps; returns minimized coordinates of ``x0``'s
-    shape.  ``graph``: on the card, replay the steps from a CUDA graph of
+    shape.  ``tol`` (a max-force target in kJ/mol/nm) is accepted and
+    unused, as in the JAX package: the trip count is fixed.  ``graph``: on the card, replay the steps from a CUDA graph of
     one (an eager step is a few hundred small launches, host-bound); the
     energy must then do no host work: that of a system without a box
     does none (``fixtures.peptide_pdb``), a box is copied to the card at

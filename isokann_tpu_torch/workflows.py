@@ -27,12 +27,6 @@ from .simulators.metadynamics import MetadynamicsSimulation
 from .targets import DomainError
 
 
-def _no_plots(plots, who):
-    if plots is not None:
-        raise NotImplementedError(f"{who}(plots=...) needs "
-                                  f"utils/plots.py, which is not ported")
-
-
 def adaptive_metadynamics(iso, deposit=None, x0=None, maxnorm=20.0,
                           gen=None, **mdargs):
     """One generation of chi-metadynamics sampling (reference
@@ -64,12 +58,14 @@ def adaptive_metadynamics(iso, deposit=None, x0=None, maxnorm=20.0,
 def run_metadynamics(iso, generations=100, iter=100, plots=None, **mdargs):
     """``generations`` x (``adaptive_metadynamics(iso, **mdargs)`` ->
     ``iso.run(iter)``) (reference ``run_metadynamics!``,
-    ``src/workflows.jl:4-14``).  ``plots=`` needs ``utils/plots.py``,
-    which is not ported, and raises."""
-    _no_plots(plots, "run_metadynamics")
+    ``src/workflows.jl:4-14``).  A ``plots`` list gains the training
+    dashboard (``utils.plots.plot_training``) after each generation."""
     for _ in range(generations):
         adaptive_metadynamics(iso, **mdargs)
         iso.run(iter)
+        if plots is not None:
+            from .utils.plots import plot_training
+            plots.append(plot_training(iso))
     return iso
 
 
@@ -77,22 +73,25 @@ def run_both(iso, generations=100, samples_kde=1, iter=100, plots=None,
              **mdargs):
     """``generations`` x (one KDE generation of ``samples_kde`` points ->
     one metadynamics generation), each trained ``iter`` iterations
-    (reference ``run_both!``, ``src/workflows.jl:51-56``)."""
-    _no_plots(plots, "run_both")
+    (reference ``run_both!``, ``src/workflows.jl:51-56``); ``plots`` as
+    in ``run_metadynamics``."""
     for _ in range(generations):
         iso.run_kde(generations=1, kde=samples_kde, iter=iter)
-        run_metadynamics(iso, generations=1, iter=iter, **mdargs)
+        run_metadynamics(iso, generations=1, iter=iter, plots=plots,
+                         **mdargs)
     return iso
 
 
 def run_kde_dash(iso, generations=1, plots=None, **kwargs):
     """``generations`` x ``iso.run_kde(generations=1, **kwargs)``
-    (reference ``run_kde_dash!``, ``src/workflows.jl:39-49``).  Returns
-    ``plots``; collecting figures in a ``plots`` list needs
-    ``utils/plots.py``, which is not ported."""
-    _no_plots(plots, "run_kde_dash")
+    (reference ``run_kde_dash!``, ``src/workflows.jl:39-49``); a
+    ``plots`` list gains the training dashboard after each generation.
+    Returns ``plots``."""
     for _ in range(generations):
         iso.run_kde(generations=1, **kwargs)
+        if plots is not None:
+            from .utils.plots import plot_training
+            plots.append(plot_training(iso))
     return plots
 
 

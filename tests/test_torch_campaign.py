@@ -182,7 +182,7 @@ def test_main_runs_every_stage_and_a_relaunch_resumes(tool, tmp_path,
                                                       monkeypatch):
     """``main`` on a small alanine stand-in for trp-cage: the pilot, the
     sweep (rows on disk), the campaign with checkpoints, the analysis and
-    the records of what is not ported; a relaunch into the same ``--out``
+    the plots; a relaunch into the same ``--out``
     reuses the pilot and the sweep rows and resumes the campaign."""
     monkeypatch.setattr(tool, "build_sim", lambda steps: _ala(steps))
     sweeps = []
@@ -206,7 +206,10 @@ def test_main_runs_every_stage_and_a_relaunch_resumes(tool, tmp_path,
         assert k in res
     assert "reactive_path_error" not in res
     assert res["reactive_path_frames"] >= 0
-    assert "Queue 1 item 9" in res["plot_error"]
+    for k in ("plot_error", "lag_sweep_plot_error", "cktest_plot_error"):
+        assert k not in res, res.get(k)
+    for png in ("lag_sweep.png", "cktest.png", "training.png", "chi.png"):
+        assert (tmp_path / png).read_bytes()[:4] == b"\x89PNG", png
     on_disk = json.loads((tmp_path / "results.json").read_text())
     assert on_disk["results"]["generations"] == 2
     res2 = tool.main(generations=3, **kw)

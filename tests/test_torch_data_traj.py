@@ -355,9 +355,11 @@ def test_free_functions_and_run_kde_dash():
     assert W.run_kde_dash(iso, generations=2, iter=2, kde=3) is None
     assert len(iso.data) == 24 and len(iso.losses) == 9
     assert itt.run_kde_dash is W.run_kde_dash
-    with pytest.raises(NotImplementedError, match="utils/plots.py"):
-        W.run_kde_dash(iso, plots=[])
-    assert len(iso.data) == 24
+    plots = W.run_kde_dash(iso, generations=1, iter=2, kde=1, plots=[])
+    assert len(plots) == 1 and len(plots[0].axes) == 3
+    import matplotlib.pyplot as plt
+    plt.close(plots[0])
+    assert len(iso.data) == 25
     traj = itt.trajectory(sim, T=0.5, gen=0)
     assert traj.shape[-1] == 1
     assert itt.laggedtrajectory(iso.data, 2, gen=0).shape == (2, 1)

@@ -132,7 +132,7 @@ def test_plain_matches_tpu_kernel_on_trpcage(trpcage):
 
 
 def test_hybrid_and_autograd_forces_match_jax(trpcage):
-    """``force_flat_hybrid`` (plain kernel D + autograd bonded terms) and
+    """``force_flat_hybrid`` (plain kernel D + analytic bonded terms) and
     autograd ``force_flat`` against JAX ``force_flat``, 1e-5 relative to
     the largest force."""
     _, ts, xs, f_ref = trpcage

@@ -97,3 +97,41 @@ def test_ewald_raises(systems):
     with pytest.raises(ValueError, match="Ewald"):
         G.nonbonded_force_direct(ts.replace(method="PME"),
                                  torch.as_tensor(xs).reshape(8, 22, 3))
+
+
+def test_bonded_force_flat_matches_autograd_and_jax(systems):
+    """``forces.bonded_force_flat`` (analytic, the hybrid route's bonded
+    part) against autograd of ``bonded_energy`` and the JAX package's
+    autograd of its own, 1e-5 relative to the largest force."""
+    from isokann_tpu.md import forces as JF
+    js, ts, xs = systems
+    x = torch.as_tensor(xs)
+    f = F.bonded_force_flat(ts, x)
+    assert f.shape == x.shape
+    assert _rel(f, _minus_grad(lambda z: F.bonded_energy(
+        ts, z.reshape(8, 22, 3)), x)) < 1e-5
+
+    def jax_bonded(z):
+        z = z.reshape(22, 3)
+        return (JF.bond_energy(js, z) + JF.angle_energy(js, z)
+                + JF.dihedral_energy(js, z))
+    ref = -jax.vmap(jax.grad(jax_bonded))(jnp.asarray(xs))
+    assert _rel(f, ref) < 1e-5
+
+
+@pytest.mark.parametrize("kw", [dict(constraints="HBonds"),
+                                dict(implicit="obc2", constraints="HBonds"),
+                                dict(addwater=True, padding=0.9)],
+                         ids=["plain_rf", "plain_obc2", "dense_rf"])
+def test_plain_and_dense_routes_take_the_analytic_forces(kw):
+    """The "plain" and "dense" routes of ``MDSimulation`` under the
+    reaction field or OBC2 are the analytic forces, equal to autograd
+    ``force_flat`` within 1e-5 relative to the largest force."""
+    sim = itt.MDSimulation(device="cpu", **kw)
+    assert sim.route in ("plain", "dense")
+    rng = np.random.default_rng(3)
+    x = sim.coords[None] + torch.as_tensor(
+        rng.normal(scale=0.002, size=(2, sim.dim)), dtype=torch.float32)
+    f = sim.force(x)
+    assert _rel(f, G.force_flat_analytic(sim.system, x)) == 0.0
+    assert _rel(f, F.force_flat(sim.system, x)) < 1e-5

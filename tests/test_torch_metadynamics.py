@@ -261,9 +261,12 @@ def test_metadynamics_workflow():
     itt.run_both(iso, generations=1, samples_kde=1, iter=2, deposit=5)
     assert len(iso.losses) == 12 and len(iso.data) == 11
     assert np.all(np.isfinite(iso.losses))
+    import matplotlib.pyplot as plt
     for fn in (itt.run_metadynamics, itt.run_both):
-        with pytest.raises(NotImplementedError, match="utils/plots.py"):
-            fn(iso, generations=1, plots=[])
+        plots = []
+        fn(iso, generations=1, iter=2, deposit=5, plots=plots)
+        assert len(plots) == 1 and len(plots[0].axes) == 3
+        plt.close(plots[0])
 
 
 @pytest.mark.parametrize("make", [

@@ -165,3 +165,30 @@ def test_shiftscale_call_matches_jax():
     ref = JT.TransformShiftscale()(model, xs, ys)
     got = PT.TransformShiftscale()(model, xs, ys)
     close(got.numpy(), np.asarray(ref), 1e-6)
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_numpy_expectation_is_the_mean_over_k(d):
+    """The host expectation sums the k rows in order (``einsum``): the
+    bits of ``np.mean`` for d > 1, within float32 rounding for d = 1
+    (where ``np.mean`` sums pairwise), and the JAX package's mean within
+    1e-6 relative."""
+    model = stub(7, d)
+    ys = np.random.default_rng(8).normal(size=(N, 64, F)).astype(np.float32)
+    got = PT.expectation(model, ys)
+    want = np.mean(model(ys), axis=-2)
+    assert got.dtype == want.dtype == np.float32
+    if d > 1:
+        assert np.array_equal(got, want)
+    assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    ref = np.asarray(JT.expectation(model, ys))
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def test_host_to_keeps_the_permutation():
+    """``iso.host_to`` puts a host permutation on the device unchanged
+    (on the CPU a plain copy; on the card through pinned memory)."""
+    from isokann_tpu_torch.iso import host_to
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(0))
+    out = host_to(perm.reshape(4, 16), torch.device("cpu"))
+    assert torch.equal(out, perm.reshape(4, 16))

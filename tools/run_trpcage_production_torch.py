@@ -12,8 +12,9 @@ reused by a relaunch), the production campaign at the recommended lag
 the same ``--out`` resumes from the checkpoint), then the analysis: the
 Koopman fit and rates, the resolved rates at two lags, the
 Chapman-Kolmogorov test and the reactive path of the data
-(``reactive_path.pdb``).  The plots are not ported (the results record
-so).
+(``reactive_path.pdb``), and the plots (``lag_sweep.png``,
+``cktest.png``, ``training.png``, ``chi.png``; matplotlib needed, a
+failed plot recorded under ``*plot_error`` in the results).
 
 Usage: python3 tools/run_trpcage_production_torch.py [--generations N]
        [--no-lag-sweep] [--steps S] [--out DIR] [--cpu]
@@ -70,6 +71,11 @@ def reactive_path_stage(iso, out, results):
     except Exception as e:
         results["reactive_path_error"] = str(e)
     return results
+
+
+def _close(fig):
+    import matplotlib.pyplot as plt
+    plt.close(fig)
 
 
 def save_campaign(iso, out, done, telemetry, results):
@@ -277,8 +283,12 @@ def main(generations=1000, iters=300, resamples=3, cutoff=2000,
             rec = ladder[-1]
         steps = rec
         print(f"lag_sweep: production lag = {steps} steps", flush=True)
-        results["lag_sweep_plot_error"] = (
-            "plot_lag_sweep not ported: ROADMAP Queue 1 item 9")
+        try:
+            from isokann_tpu_torch.utils.plots import plot_lag_sweep
+            _close(plot_lag_sweep(results["lag_sweep"],
+                                  out=os.path.join(out, "lag_sweep.png")))
+        except Exception as e:
+            results["lag_sweep_plot_error"] = repr(e)
         if sweep_only:
             with open(os.path.join(out, "lag_sweep.json"), "w") as f:
                 json.dump(results, f, indent=1)
@@ -380,12 +390,19 @@ def main(generations=1000, iters=300, resamples=3, cutoff=2000,
         results["cktest_max_abs_dev"] = max(
             r["max_abs_dev"] for r in ck_rows)
         results["cktest_wall_s"] = time.time() - t0
-        results["cktest_plot_error"] = (
-            "plot_cktest not ported: ROADMAP Queue 1 item 9")
+        try:
+            from isokann_tpu_torch.utils.plots import plot_cktest
+            _close(plot_cktest(ck_rows, out=os.path.join(out, "cktest.png")))
+        except Exception as e:
+            results["cktest_plot_error"] = repr(e)
         checkpoint()
     reactive_path_stage(iso, out, results)
-    results["plot_error"] = (
-        "plot_training and plot_chi not ported: ROADMAP Queue 1 item 9")
+    try:
+        from isokann_tpu_torch.utils.plots import plot_chi, plot_training
+        _close(plot_training(iso, out=os.path.join(out, "training.png")))
+        _close(plot_chi(iso, out=os.path.join(out, "chi.png")))
+    except Exception as e:
+        results["plot_error"] = repr(e)
     checkpoint()
     print(json.dumps(results, indent=1), flush=True)
     return results
