@@ -44,7 +44,14 @@ port's entry points, and the goldens after them:
   ``saveextrema``, read back three ways; dihedrals, the standard form and
   RMSD coordinates against references; the reactive path's shortest path
   by the host library against scipy; ``flops.mfu`` of kernel A; no
-  kernel);
+  kernel), then the system importers: the alanine dipeptide through an
+  Amber prmtop / rst7 and an OpenMM System XML into
+  ``MDSimulation.from_system`` and ``Iso(nx=100, nk=5)`` (kernel A),
+  trp-cage's prmtop in OBC2 (kernel D), the ``pme`` phase's box through
+  System XML with its <Constraints> (kernel E), the AT dinucleotide as
+  ``examples/dna.py`` runs it (no kernel) and in PME water (E), and the
+  ligand paths (``parameterize_ligand``, frcmod + mol2, an amber14-style
+  force-field XML; A once);
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
@@ -81,8 +88,8 @@ port's entry points, and the goldens after them:
   builds AQGSAELAKVM and minimizes it (300 FIRE steps),
   ``MDSimulation(addwater=True, padding=1.0, steps=100)`` puts it in a
   TIP3P box (7,744 atoms, 2,526 rigid waters, reaction field under
-  minimum image), 4 walkers equilibrate for 200 steps, then randx0's
-  lagged trajectory of 4 frames at 50-step lags (200 single-walker steps
+  minimum image), 4 walkers equilibrate for 100 steps, then randx0's
+  lagged trajectory of 4 frames at 25-step lags (100 single-walker steps
   from the equilibrated frame), propagate of
   16 walkers x 100 steps, ``Iso.run(200)`` on the 100 solute-pair
   features, chis/koopman/rates, then a biased propagation of the 16
@@ -129,7 +136,7 @@ port's entry points, and the goldens after them:
   peptide (kernel E's dispersion branch against its plain version, 4
   walkers x 100 steps); the CMAP forces of the JAX test's toy chain
   against autograd and float64; the peptide on Verlet lists at the
-  default skin (4 walkers x 50 steps, lists rebuilt at the reference's
+  default skin (4 walkers x 25 steps, lists rebuilt at the reference's
   interval and whenever an atom has moved skin/2, no kernel; the plan's
   forces against kernel E's cell route).
 
@@ -180,6 +187,55 @@ from types import SimpleNamespace
 LIMIT_S = 180          # watchdog: the whole run, kernel build included
 TB, TSTEPS = 4, 10     # solvated temperature witness: walkers, steps
 HP35 = "LSDEDFKAVFGMTRSAFANLPLWKQQNLKKEKGLF"    # villin headpiece
+# methanol as antechamber writes it (``tests/test_ligand.py``'s fixture):
+# GAFF types and charges in the mol2, the parameters in the frcmod
+_MOH_FRCMOD = """generic methanol-like fragment
+MASS
+c3 12.010   0.878
+oh 16.000   0.465
+ho 1.008    0.135
+h1 1.008    0.135
+
+BOND
+c3-oh  316.70  1.423
+c3-h1  330.60  1.097
+oh-ho  371.40  0.973
+
+ANGLE
+h1-c3-h1  39.24  108.46
+h1-c3-oh  50.97  110.26
+c3-oh-ho  47.09  107.26
+
+DIHE
+h1-c3-oh-ho  3  0.50  0.0  3.
+
+IMPROPER
+
+NONBON
+  c3  1.9080  0.1094
+  oh  1.7210  0.2104
+  ho  0.0000  0.0000
+  h1  1.3870  0.0157
+"""
+_MOH_MOL2 = """@<TRIPOS>MOLECULE
+MOH
+ 6 5 1 0 0
+SMALL
+USER_CHARGES
+@<TRIPOS>ATOM
+  1 C1   0.000  0.000  0.000 c3 1 MOH  0.0900
+  2 O1   1.410  0.000  0.000 oh 1 MOH -0.5988
+  3 H1  -0.360  1.030  0.000 h1 1 MOH  0.0372
+  4 H2  -0.360 -0.520  0.890 h1 1 MOH  0.0372
+  5 H3  -0.360 -0.520 -0.890 h1 1 MOH  0.0372
+  6 H4   1.730  0.890  0.000 ho 1 MOH  0.3972
+@<TRIPOS>BOND
+  1 1 2 1
+  2 1 3 1
+  3 1 4 1
+  4 1 5 1
+  5 2 6 1
+"""
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()       # main() sets it; phases print from it
 
@@ -852,7 +908,7 @@ def cmap_verlet_phase(spdb, x_eq, stamp):
     """CMAP and Verlet lists on the card: the CMAP forces of the JAX test's
     toy chain (``tests/test_cmap.py``) against autograd and against
     float64 on the CPU; phase 12's peptide with ``neighbor_mode="verlet"``
-    at the default skin: one 50-step lag of 4 walkers on the lists (no
+    at the default skin: one 25-step lag of 4 walkers on the lists (no
     kernel: the reference's Verlet path is XLA), then the forces from
     the plan it built against kernel E's cell route (1e-5 of max|f|,
     ``tests/test_verlet.py``).  Returns the Verlet times."""
@@ -896,7 +952,7 @@ def cmap_verlet_phase(spdb, x_eq, stamp):
     require(rel_ag < 1e-5 and rel_64 < 1e-5, "CMAP forces")
 
     t1 = time.perf_counter()
-    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=50,
+    sim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=25,
                            neighbor_mode="verlet")
     sim.setcoords(x_eq)
     torch.cuda.synchronize()
@@ -1255,6 +1311,410 @@ def io_utils_phase(iso, tpdb, a_rate, stamp):
             "flops.mfu of kernel A = bound_ms / ms")
     require(others == 0, "io_utils launches no kernel")
     return dict(t=dict(t.total), seconds=sum(t.total.values()))
+
+
+def _bucketed(xb):
+    """(B, 3N) walkers padded as ``MDSimulation.propagate`` pads them for
+    its launch: to a power of two of at least 8, repeating the last."""
+    import torch
+    nw = xb.shape[0]
+    bucket = max(8, 1 << (nw - 1).bit_length())
+    return torch.cat([xb, xb[-1:].expand(bucket - nw, -1)]).contiguous()
+
+
+def _import_errors(sys_a, sys_b, x, rtol, atol):
+    """Energies and forces of two systems at ``x`` (N, 3) on the card:
+    every term of ``energy_terms`` (the bonded terms and the total for a
+    neighbor-layout system) within ``atol + rtol |E|``, the forces within
+    5e-4 of max(1, max|f|) (the JAX test's ``_compare_terms``).  Returns
+    (largest |dE| in units of its bound, largest force error / scale)."""
+    import torch
+    from isokann_tpu_torch.md import forces as F
+    xb = x.reshape(1, -1, 3)
+    if sys_a.dense_pairs:
+        ta, tb = F.energy_terms(sys_a, xb), F.energy_terms(sys_b, xb)
+    else:
+        ta, tb = ({"bond": F.bond_energy(s, xb),
+                   "angle": F.angle_energy(s, xb),
+                   "dihedral": F.dihedral_energy(s, xb)}
+                  for s in (sys_a, sys_b))
+    ta["total"] = F.potential_energy(sys_a, xb)
+    tb["total"] = F.potential_energy(sys_b, xb)
+    require(set(ta) == set(tb), "imported system: the same energy terms")
+    ea = {k: float(v.reshape(-1)[0]) for k, v in ta.items()}
+    eb = {k: float(v.reshape(-1)[0]) for k, v in tb.items()}
+    e_worst = max(abs(ea[k] - eb[k]) / (atol + rtol * abs(ea[k]))
+                  for k in ea)
+    fa = F.force_flat(sys_a, xb.reshape(1, -1))
+    fb = F.force_flat(sys_b, xb.reshape(1, -1))
+    scale = max(1.0, float(fa.abs().max()))
+    return e_worst, float((fa - fb).abs().max()) / scale
+
+
+def importers_phase(tpdb, stamp):
+    """The system importers on the card (``examples/import_amber.py``,
+    ``examples/dna.py``, ``tests/test_ligand.py``): (a) the alanine
+    dipeptide written as prmtop, rst7 and OpenMM System XML and read back,
+    energies and forces at the JAX test's bounds (rtol 2e-4, atol 2e-3),
+    ``MDSimulation.from_system`` on the "fused" route and ``Iso(nx=100,
+    nk=5)`` on it (kernel A: 60 bootstrap lags + 1 propagate), ``run(10)``;
+    (b) phase 2's trp-cage through ``save_prmtop`` / ``system_from_prmtop
+    (implicit="obc2")`` on the "hybrid" route (kernel D: one propagate of 5
+    x 2 walkers x 100 steps); (c) the ``pme`` phase's PME box (1,012
+    atoms) through ``save_system_xml`` / ``load_system_xml(dense_pairs=
+    False)`` with its rigid waters as <Constraints>, the "neighbor" route
+    (kernel E's layout and erfc sweep: 10 steps at B=4), at rtol 5e-4,
+    atol 5e-3; (d) ``build_nucleic("AT")`` as ``examples/dna.py`` builds it
+    (OBC2, HBonds, minimized; the "plain" route, no kernel: 4 x 2 walkers x
+    50 steps), then in a PME water box (one Na+, kernel E: 10 steps at
+    B=1); (e) acetone through ``parameterize_ligand`` (FIRE downhill; the
+    "fused" route: one propagate at B=8), methanol through frcmod + mol2
+    and ``tests/data/amber14_style_fragment.xml`` through
+    ``register_forcefield_ffxml``, the amber tables restored after.  Every
+    kernel of a path against its plain version on the imported plan at
+    the batches the path launched (``propagate`` pads the walkers to a
+    power of two of at least 8: D at B=16, E at B=8 on both boxes) and at
+    the walkers' own counts.  Returns the launches of A, D and E, their errors
+    and the stage seconds."""
+    import numpy as np
+    import torch
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch.md import amber
+    from isokann_tpu_torch.md import amberio as AIO
+    from isokann_tpu_torch.md import forces as F
+    from isokann_tpu_torch.md import gb_kernel as GB
+    from isokann_tpu_torch.md import importers as IMP
+    from isokann_tpu_torch.md import langevin_kernel as LK
+    from isokann_tpu_torch.md import ligand as LIG
+    from isokann_tpu_torch.md import neighbor_kernel as NBK
+    from isokann_tpu_torch.md import openmm_xml as OXML
+    from isokann_tpu_torch.md.fixtures import (alanine_dipeptide_pdb,
+                                               build_nucleic)
+    from isokann_tpu_torch.md.minimize import minimize_energy
+    from isokann_tpu_torch.md.pdbio import PDBStructure, read_pdb, write_pdb
+    from isokann_tpu_torch.md.solvate import water_constraint_pairs
+    from isokann_tpu_torch.md.system import build_system
+    from isokann_tpu_torch.utils.telemetry import Timers
+
+    dev = torch.device("cuda")
+    t = Timers()
+    gen = itt.make_generator(90)
+    tables = ("ATOM_TYPES", "BONDS", "ANGLES", "DIHEDRALS", "IMPROPERS",
+              "RESIDUES")
+    snap = {k: copy.deepcopy(getattr(amber, k)) for k in tables}
+    kerr = {}       # kernel -> max abs err against its plain version
+
+    def against_plain(name, got, want, rel_tol, what):
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        require(rel < rel_tol, what)
+        kerr[name] = max(kerr.get(name, 0.0), err)
+        return rel
+
+    def lm_against_plain(plan, xb, what):
+        """Kernel A on ``plan`` against its plain version: forces 1e-5,
+        10 noiseless steps x 1e-5 / v 1e-4 (relative)."""
+        vb = torch.as_tensor(np.random.default_rng(xb.shape[0]).normal(
+            scale=0.3, size=tuple(xb.shape)), dtype=torch.float32,
+            device=dev)
+        fr = against_plain("A", LK.forces(plan, xb),
+                           LK.forces_plain(plan, xb), 1e-5,
+                           f"{what}: kernel A forces vs plain")
+        xk, vk = LK.langevin_middle(plan, xb, vb, 10, gen, noise=False)
+        xp, vp = LK.langevin_middle_plain(plan, xb, vb, 10, noise=False)
+        xr = against_plain("A", xk, xp, 1e-5,
+                           f"{what}: kernel A x after 10 noiseless steps")
+        vr = against_plain("A", vk, vp, 1e-4,
+                           f"{what}: kernel A v after 10 noiseless steps")
+        return max(fr, xr), vr
+
+    for k in _counted_kernels():
+        k.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            # ---- (a) alanine: prmtop, rst7, System XML; kernel A -----------
+            with t("(a) alanine export + import"):
+                apdb = alanine_dipeptide_pdb()
+                built = build_system(apdb, method="NoCutoff")
+                xa = read_pdb(apdb).coords
+                prm, rst, xml = (os.path.join(d, f"alanine.{e}")
+                                 for e in ("prmtop", "rst7", "xml"))
+                AIO.save_prmtop(built, prm)
+                AIO.write_rst7(rst, xa)
+                OXML.save_system_xml(built, xml)
+                sys_prm, coords, meta = AIO.system_from_prmtop(
+                    prm, rst, method="NoCutoff")
+                sys_xml, cons_xml, meta_xml = OXML.load_system_xml(xml)
+                xt = torch.as_tensor(coords, dtype=torch.float32, device=dev)
+                a_err = [_import_errors(built, s, xt, 2e-4, 2e-3)
+                         for s in (sys_prm, sys_xml)]
+            require(all(e < 1.0 and f < 5e-4 for e, f in a_err)
+                    and cons_xml == [] and meta_xml["skipped_forces"] == []
+                    and len(meta["atom_names"]) == built.natoms,
+                    "alanine prmtop and XML: energies at rtol 2e-4, atol "
+                    "2e-3; forces 5e-4")
+            with t("(a) from_system + Iso(nx=100, nk=5)"):
+                asim = itt.MDSimulation.from_system(sys_prm, coords,
+                                                    source=prm)
+                chains, burnin = asim.bootstrap_chains(100)
+                r0 = asim.retries
+                aiso = itt.Iso(sim=asim, nx=100, nk=5,
+                               opt=itt.AdamRegularized(), gen=91)
+                torch.cuda.synchronize()
+            a_iso = LK.langevin_middle.launches
+            want_a = 100 // chains + burnin + 1 + asim.retries - r0
+            with t("(a) run(10)"):
+                aiso.run(10)
+                torch.cuda.synchronize()
+            require(asim.route == "fused" and asim.plan is not None
+                    and asim.constructor["from_system"] is True,
+                    "imported alanine: the fused route")
+            require(a_iso == want_a, "imported alanine: kernel A 60 "
+                    "bootstrap lags + 1 propagate (+ retries)")
+            require(np.all(np.isfinite(aiso.losses))
+                    and len(aiso.losses) == 10, "imported alanine: run(10) "
+                    "finite losses")
+
+            # ---- (b) trp-cage in OBC2 through its prmtop; kernel D ---------
+            with t("(b) trp-cage prmtop"):
+                tsys = build_system(tpdb, implicit="obc2")
+                tprm = os.path.join(d, "trpcage.prmtop")
+                AIO.save_prmtop(tsys, tprm)
+                isys = AIO.system_from_prmtop(tprm, implicit="obc2")[0]
+                xtp = torch.as_tensor(read_pdb(tpdb).coords,
+                                      dtype=torch.float32, device=dev)
+                b_err = _import_errors(tsys, isys, xtp, 2e-4, 2e-3)
+                tsim = itt.MDSimulation.from_system(isys, xtp, source=tprm)
+                torch.cuda.synchronize()
+            require(b_err[0] < 1.0 and b_err[1] < 5e-4,
+                    "trp-cage prmtop (OBC2): energies and forces")
+            require(tsim.route == "hybrid" and tsim.natoms == 313,
+                    "imported trp-cage: 313 atoms on the hybrid route")
+            r0, d0 = tsim.retries, GB.gb_force.launches
+            with t("(b) propagate 5 x 2 x 100"):
+                ys = tsim.propagate(tsim.coords[None].repeat(5, 1), 2,
+                                    gen=gen)
+                torch.cuda.synchronize()
+            d_path = GB.gb_force.launches - d0
+            want_d = tsim.steps * (1 + tsim.retries - r0)
+            require(bool(torch.isfinite(ys).all()) and d_path == want_d,
+                    "imported trp-cage: kernel D once a step")
+
+            # ---- (c) the PME box through System XML; kernel E --------------
+            with t("(c) PME box build"):
+                pn = itt.MDSimulation(addwater=True, padding=0.9, steps=3,
+                                      method="PME", dense_pairs=False)
+            cons = water_constraint_pairs(pn.structure)
+            with t("(c) PME box XML"):
+                bxml = os.path.join(d, "pme_box.xml")
+                OXML.save_system_xml(pn.system, bxml, constraints=cons)
+                bsys, bcons, _ = OXML.load_system_xml(bxml,
+                                                      dense_pairs=False)
+                # the neighbor layout's forces launch E: a comparison's
+                # launches, not the path's
+                e_cmp = NBK.neighbor_sweep.launches
+                c_err = _import_errors(pn.system, bsys,
+                                       pn.coords.reshape(-1, 3), 5e-4, 5e-3)
+                e_cmp = NBK.neighbor_sweep.launches - e_cmp
+                bsim = itt.MDSimulation.from_system(
+                    bsys, pn.coords, steps=10, constraint_pairs=bcons,
+                    source=bxml)
+                torch.cuda.synchronize()
+            require(c_err[0] < 1.0 and c_err[1] < 5e-4,
+                    "PME box XML: energies at rtol 5e-4, atol 5e-3")
+            require(pn.natoms == 1012 and bsys.method == "PME"
+                    and len(bcons) == len(cons)
+                    and bsim.route == "neighbor", "imported PME box: 1,012 "
+                    "atoms, its constraints, the neighbor route")
+            e0, l0, r0 = (NBK.neighbor_sweep.launches,
+                          NBK.neighbor_layout.launches, bsim.retries)
+            with t("(c) propagate 4 x 10"):
+                yb = bsim.propagate(bsim.coords[None].repeat(4, 1), 1,
+                                    gen=gen)[:, 0]
+                torch.cuda.synchronize()
+            e_box = NBK.neighbor_sweep.launches - e0
+            want_e = bsim.steps * (1 + bsim.retries - r0)
+            bviol = bsim.constraint_set.max_violation(yb)
+            require(bool(torch.isfinite(yb).all()) and e_box == want_e
+                    and NBK.neighbor_layout.launches - l0 == want_e,
+                    "imported PME box: layout and sweep once a step")
+            require(bsim.overflows == 0 and bviol < 1e-5,
+                    "imported PME box: no overflow, waters held to 1e-5 nm")
+
+            # ---- (d) DNA: examples/dna.py, then in PME water ---------------
+            with t("(d) AT in OBC2, HBonds, minimized"):
+                dpdb = os.path.join(d, "dna_at.pdb")
+                at = build_nucleic("AT")
+                write_pdb(dpdb, at)
+                dsim = itt.MDSimulation(pdb=dpdb, steps=50, implicit="obc2",
+                                        constraints="HBonds", minimize=True)
+                torch.cuda.synchronize()
+            before = sum(k.launches for k in _counted_kernels())
+            with t("(d) propagate 4 x 2 x 50"):
+                yd = dsim.propagate(dsim.coords[None].repeat(4, 1), 2,
+                                    gen=gen)
+                torch.cuda.synchronize()
+            dviol = dsim.constraint_set.max_violation(yd)
+            require(dsim.natoms == 63 and dsim.route == "plain"
+                    and sum(k.launches for k in _counted_kernels())
+                    == before, "AT: 63 atoms on the plain route, no kernel")
+            require(bool(torch.isfinite(yd).all()) and dviol < 1e-4,
+                    "AT: finite, HBonds held to 1e-4 nm")
+            with t("(d) AT in PME water"):
+                at.coords = dsim.coords.cpu().double().numpy().reshape(-1, 3)
+                write_pdb(dpdb, at)
+                wsim = itt.MDSimulation(pdb=dpdb, addwater=True, padding=0.7,
+                                        method="PME", dense_pairs=False,
+                                        steps=10)
+                n_na = sum(r == "NA" for r in wsim.structure.res_names)
+                qnet = float(wsim.system.charges.double().sum())
+                e0, r0 = NBK.neighbor_sweep.launches, wsim.retries
+                yw = wsim.propagate(wsim.coords[None], 1, gen=gen)[:, 0]
+                torch.cuda.synchronize()
+            e_dna = NBK.neighbor_sweep.launches - e0
+            wviol = wsim.constraint_set.max_violation(yw)
+            require(n_na == 1 and abs(qnet) < 1e-4,
+                    "solvated AT: one Na+, net charge below 1e-4")
+            require(wsim.route == "neighbor" and bool(torch.isfinite(yw).all())
+                    and e_dna == wsim.steps * (1 + wsim.retries - r0)
+                    and wsim.overflows == 0 and wviol < 1e-5,
+                    "solvated AT: E once a step, no overflow, waters held")
+
+            # ---- (e) ligands ----------------------------------------------
+            with t("(e) acetone: parameterize, FIRE"):
+                els = ["C", "O", "C", "C"]
+                xyz = np.array([[0.0, 0.0, 0.0], [0.0, 1.22, 0.0],
+                                [1.31, -0.75, 0.0], [-1.31, -0.75, 0.0]]) / 10
+                act = PDBStructure(["C1", "O1", "C2", "C3"], ["ACT"] * 4,
+                                   [1] * 4, ["A"] * 4, els, xyz)
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    _, full = LIG.parameterize_ligand("ACT", act)
+                lpdb = os.path.join(d, "acetone.pdb")
+                write_pdb(lpdb, full)
+                lsys = build_system(lpdb)
+                x0 = torch.as_tensor(full.coords.reshape(-1),
+                                     dtype=torch.float32, device=dev)
+                x1 = minimize_energy(
+                    lambda z: F.potential_energy_flat(lsys, z), x0,
+                    maxiter=200, graph=True)
+                el0 = float(F.potential_energy_flat(lsys, x0))
+                el1 = float(F.potential_energy_flat(lsys, x1))
+            require(any("Gasteiger" in str(m.message) for m in w)
+                    and full.natoms == 10, "acetone: 10 atoms after H "
+                    "addition, the Gasteiger warning")
+            require(np.isfinite(el1) and el1 < el0, "acetone: FIRE downhill")
+            with t("(e) acetone: fused propagate at B=8"):
+                lmd = itt.MDSimulation(pdb=lpdb)
+                lmd.setcoords(x1)
+                a0 = LK.langevin_middle.launches
+                yl = lmd.propagate(lmd.coords[None].repeat(8, 1), 1, gen=gen)
+                torch.cuda.synchronize()
+            a_lig = LK.langevin_middle.launches - a0
+            require(lmd.route == "fused" and a_lig == 1 + lmd.retries
+                    and bool(torch.isfinite(yl).all()),
+                    "acetone: the fused route, kernel A once")
+            with t("(e) methanol frcmod + mol2, amber14 fragment"):
+                fp = os.path.join(d, "moh.frcmod")
+                mp = os.path.join(d, "moh.mol2")
+                with open(fp, "w") as f:
+                    f.write(_MOH_FRCMOD)
+                with open(mp, "w") as f:
+                    f.write(_MOH_MOL2)
+                _, mol2 = IMP.register_ligand_frcmod("MOH", mp, fp)
+                mpdb = os.path.join(d, "moh.pdb")
+                write_pdb(mpdb, PDBStructure(
+                    mol2["names"], ["MOH"] * 6, [1] * 6, ["A"] * 6,
+                    mol2["elements"], mol2["coords_nm"]))
+                msys = build_system(mpdb)
+                em = float(F.potential_energy_flat(msys, torch.as_tensor(
+                    mol2["coords_nm"].reshape(-1), dtype=torch.float32,
+                    device=dev)))
+                qm = np.sort(msys.charges.cpu().numpy())
+                done = IMP.register_forcefield_ffxml(os.path.join(
+                    ROOT, "tests", "data", "amber14_style_fragment.xml"))
+                fsys = build_system(apdb)
+                ef = float(F.potential_energy_flat(fsys, xt.reshape(-1)))
+            require(np.isfinite(em) and np.allclose(
+                qm, np.sort(mol2["charges"]), atol=1e-6),
+                "methanol frcmod + mol2: finite energy, the mol2 charges")
+            require(set(done) == {"ACE", "ALA", "NME"} and np.isfinite(ef),
+                    "amber14 fragment: registered, finite energy")
+    finally:
+        for k, v in snap.items():
+            getattr(amber, k).clear()
+            getattr(amber, k).update(v)
+    require(all(getattr(amber, k) == snap[k] for k in tables),
+            "the amber tables restored")
+    e_path = e_box + e_dna
+    require(LK.langevin_middle.launches == a_iso + a_lig
+            and GB.gb_force.launches == d_path
+            and NBK.neighbor_sweep.launches
+            == NBK.neighbor_layout.launches == e_path + e_cmp
+            and LK.forces.launches == 0
+            and all(k.launches == 0 for k in _counted_kernels()
+                    if k not in (LK.langevin_middle, GB.gb_force,
+                                 NBK.neighbor_sweep, NBK.neighbor_layout)),
+            "importers: A, D and E only, each as its path requires")
+
+    # each kernel against its plain version on the imported plans, at the
+    # paths' batches (these launches are not the path's)
+    xa_b = _frames(asim.coords, 512, 91)
+    a_rel = [lm_against_plain(asim.plan, xa_b[:b].contiguous(),
+                              f"imported alanine B={b}")
+             for b in (chains, 512)]
+    a_rel.append(lm_against_plain(lmd.plan, _frames(lmd.coords, 8, 92),
+                                  "acetone B=8"))
+    # D and E at the padded batches the paths launched (B=16, 8, 8) and
+    # at the walkers' own counts (10, 4, 1)
+    xd = ys.reshape(10, -1).contiguous()
+    d_rel = [against_plain("D", GB.gb_force(tsim.gbplan, xb),
+                           GB.gb_force_plain(tsim.gbplan, xb), 1e-5,
+                           f"imported trp-cage: kernel D vs plain at "
+                           f"B={xb.shape[0]}")
+             for xb in (_bucketed(xd), xd)]
+    e_rel = [_sweep_vs_plain(sim.system, sim.nbplan, xb,
+                             alpha=sim.system.ewald_alpha)
+             for sim, y in ((bsim, yb), (wsim, yw))
+             for xb in (_bucketed(y), y.contiguous())]
+    e_b = [xb.shape[0] for y in (yb, yw) for xb in (_bucketed(y), y)]
+    require(all(r < 1e-5 for r, _ in e_rel),
+            "imported PME box and solvated AT: kernel E erfc vs plain")
+    kerr["E"] = max(e for _, e in e_rel)
+    print(f"  importers: (a) alanine prmtop / XML energies worst "
+          f"{max(e for e, _ in a_err):.3f} of the bound (rtol 2e-4, atol "
+          f"2e-3), forces {max(f for _, f in a_err):.2e} (tol 5e-4); "
+          f"from_system route {asim.route}, Iso(nx=100, nk=5): A "
+          f"{a_iso} launches (expected {want_a}), run(10) loss "
+          f"{aiso.losses[0]:.4f} -> {aiso.losses[-1]:.4f}; A vs plain on "
+          f"the imported plan at B={chains}/512 forces/x "
+          f"{max(r[0] for r in a_rel[:2]):.2e} (tol 1e-5), v "
+          f"{max(r[1] for r in a_rel[:2]):.2e} (tol 1e-4); (b) trp-cage "
+          f"prmtop OBC2 energies {b_err[0]:.3f} of the bound, forces "
+          f"{b_err[1]:.2e}; route {tsim.route}, D {d_path} launches "
+          f"(expected {want_d}), D vs plain at B=16/10 {d_rel[0]:.2e} / "
+          f"{d_rel[1]:.2e} (tol 1e-5); (c) PME box XML ({bsys.natoms} atoms, {len(bcons)} "
+          f"constraints) energies {c_err[0]:.3f} of the bound (rtol 5e-4, "
+          f"atol 5e-3), forces {c_err[1]:.2e}; route {bsim.route}, E "
+          f"layout + sweep {e_box} each (expected {want_e}), overflows "
+          f"{bsim.overflows}, waters {bviol:.2e} nm (tol 1e-5), E erfc vs "
+          f"plain at B={e_b[0]}/{e_b[1]} {e_rel[0][0]:.2e} / "
+          f"{e_rel[1][0]:.2e} (tol 1e-5); (d) AT "
+          f"{dsim.natoms} atoms route {dsim.route}, HBonds {dviol:.2e} nm "
+          f"(tol 1e-4); in water {wsim.natoms} atoms, Na+ {n_na}, net "
+          f"charge {qnet:.2e}, E {e_dna} launches, waters {wviol:.2e} nm, "
+          f"E vs plain at B={e_b[2]}/{e_b[3]} {e_rel[2][0]:.2e} / "
+          f"{e_rel[3][0]:.2e}; (e) acetone "
+          f"{full.natoms} atoms, FIRE {el0:.1f} -> {el1:.1f} kJ/mol, route "
+          f"{lmd.route}, A {a_lig} launch, A vs plain at B=8 "
+          f"{a_rel[2][0]:.2e} / {a_rel[2][1]:.2e}; methanol {em:.2f} "
+          f"kJ/mol, fragment {ef:.2f} kJ/mol; "
+          f"{t.report().replace(chr(10), '; ')} {stamp}")
+    return dict(a_launches=a_iso + a_lig, d_launches=d_path,
+                e_launches=e_path,
+                a_err=kerr["A"], d_err=kerr["D"], e_err=kerr["E"],
+                t=dict(t.total),
+                seconds=sum(t.total.values()))
 
 
 def analysis_goldens_phase(dw_iso, tw_iso, stamp):
@@ -2052,6 +2512,13 @@ def main():
     uph = io_utils_phase(iso, pdb, (plan, BL, NL, msL, bL), stamp)
     phase("io_utils", t0, f"Timers {uph['seconds']:.3f}s")
 
+    # ---- 5e''. importers: prmtop, System XML, from_system, DNA, ligands ---
+    t0 = time.perf_counter()
+    iph = importers_phase(pdb, stamp)
+    lm_err = max(lm_err, iph["a_err"])
+    phase("importers", t0, " ".join(f"{k} {v:.3f}s" for k, v in
+                                    iph["t"].items()))
+
     # ---- 5f. enhanced_sampling: metadynamics, bridges, effective dynamics --
     t0 = time.perf_counter()
     eph = enhanced_sampling_phase(iso, stamp)
@@ -2719,10 +3186,10 @@ def main():
           f"{xrel:.3e} (tol 1e-5), rel v {vrel:.3e} (tol 1e-4)")
     require(xrel < 1e-5 and vrel < 1e-4, "noiseless hybrid vs plain path")
 
-    # kinetic temperature over the last 50 of 100 steps, B=256, the same
+    # kinetic temperature over the last 26 of 52 steps, B=256, the same
     # start and the same noise stream for both paths (cut for the time
     # limit, PERF.md §4)
-    TCH = 25                    # steps a chunk, 4 chunks
+    TCH = 13                    # steps a chunk, 4 chunks
 
     def kinetic_temperature(step_fn):
         x, v, temps = xg, vg, []
@@ -2833,7 +3300,7 @@ def main():
     # 100-step lag, nk = 4, 200 iterations; nx is cut from 50 to 4, the
     # biased run to 50 steps.
     t0 = time.perf_counter()
-    NXS, NKS, ITS, EQS, EQW, XLAG, BSTEPS = 4, 4, 200, 200, 4, 50, 50
+    NXS, NKS, ITS, EQS, EQW, XLAG, BSTEPS = 4, 4, 200, 100, 4, 25, 50
     t1 = time.perf_counter()
     ssim = itt.MDSimulation(pdb=spdb, addwater=True, padding=1.0, steps=100)
     ts_build = time.perf_counter() - t1
@@ -2863,7 +3330,7 @@ def main():
     ssim.setcoords(eq[0, 0])
     smodel = ssim.defaultmodel(n=len(ssim.featurizer.pairs), gen=sgen)
     t1 = time.perf_counter()
-    # randx0's lagged trajectory at 50-step lags
+    # randx0's lagged trajectory at 25-step lags
     sxs = ssim.laggedtrajectory(NXS, steps=XLAG, gen=sgen)
     torch.cuda.synchronize()
     ts_x0 = time.perf_counter() - t1
@@ -3680,7 +4147,7 @@ def main():
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
         "launches": (launches + a_lag + a_adapt + a_ens + eph["lm_launches"]
-                     + a_golden),
+                     + iph["a_launches"] + a_golden),
         "max_abs_err": lm_err,
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,
@@ -3704,16 +4171,18 @@ def main():
         "name": "gb_force", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/gb_force.cu",
         "replaces": "isokann_tpu/md/pallas_gb.py:501",
-        "launches": d_launches + d_prod + dv_launches + cph["d_launches"],
-        "max_abs_err": gb_err, "ms": d_ms[1024],
+        "launches": (d_launches + d_prod + dv_launches + cph["d_launches"]
+                     + iph["d_launches"]),
+        "max_abs_err": max(gb_err, iph["d_err"]), "ms": d_ms[1024],
         "plain_ms": d_plain[1024], "bound_ms": d_bms, "bound_by": d_by,
         "library_ms": None,
     }, {
         "name": "neighbor_sweep", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": e_launches + eb_launches + pph["e_launches"] + e_new,
-        "max_abs_err": nb_err,
+        "launches": (e_launches + eb_launches + pph["e_launches"] + e_new
+                     + iph["e_launches"]),
+        "max_abs_err": max(nb_err, iph["e_err"]),
         "ms": e_ms[64],
         "sweep_ms": e_alone[64], "plain_ms": e_plain[64], "bound_ms": e_bms,
         "bound_by": e_by, "library_ms": None,
@@ -3723,7 +4192,8 @@ def main():
         "name": "neighbor_layout", "route": "cuda",
         "source": "isokann_tpu_torch/csrc/neighbor_sweep.cu",
         "replaces": "isokann_tpu/md/neighbor.py:926",
-        "launches": l_launches + eb_launches + pph["e_launches"] + e_new,
+        "launches": (l_launches + eb_launches + pph["e_launches"] + e_new
+                     + iph["e_launches"]),
         "max_abs_err": lay_err,
         "ms": e_prep[64],
         "plain_ms": l_plain[64],

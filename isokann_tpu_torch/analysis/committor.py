@@ -2,15 +2,14 @@
 ``isokann_tpu/analysis/committor.py`` (reference
 ``scripts/251126_carsten/committor.jl:4-61``): boundary-condition row
 surgery on the generator and a GMRES solve with a diagonal
-preconditioner, on the host in float64 (scipy)."""
+preconditioner, on the host in float64 (scipy, imported at the first
+call: ``import isokann_tpu_torch`` does not pay for scipy.sparse)."""
 
 from __future__ import annotations
 
 import warnings
 
 import numpy as np
-import scipy.sparse as sp
-import scipy.sparse.linalg as spla
 
 
 def committor_system(Q, classes):
@@ -19,6 +18,7 @@ def committor_system(Q, classes):
     any other nonzero value for set A (committor 0); the boundary rows
     of Q become unit rows (reference ``committor_system``,
     ``committor.jl:34-61``)."""
+    import scipy.sparse as sp
     Q = sp.csr_matrix(np.asarray(Q, dtype=np.float64), copy=True)
     b = np.asarray(classes, dtype=np.float64).copy()
     n = Q.shape[0]
@@ -34,6 +34,8 @@ def solve_committor(Q, classes, maxiter=1000, tol=1e-8):
     """The committor q (n,): GMRES on ``committor_system`` with a
     diagonal preconditioner (reference ``committor``,
     ``committor.jl:4-29``); warns when it does not converge."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
     A, b = committor_system(Q, classes)
     d = A.diagonal()
     d[d == 0] = 1.0

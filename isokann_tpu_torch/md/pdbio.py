@@ -20,6 +20,7 @@ class PDBStructure:
     elements: List[str]
     coords: np.ndarray                 # (natoms, 3) in nm
     box: Optional[np.ndarray] = None   # (3,) box lengths in nm, if CRYST1
+    conect: Optional[List] = None      # [(i, j), ...] 0-based CONECT bonds
 
     @property
     def natoms(self):
@@ -39,17 +40,26 @@ def _guess_element(name: str) -> str:
 
 
 def read_pdb(path: str) -> PDBStructure:
-    """Parse the ATOM/HETATM records of the first model of a PDB file."""
+    """Parse the ATOM/HETATM records of the first model of a PDB file.
+    CONECT records (ligand / heterogen connectivity) come back as 0-based
+    index pairs in ``.conect``."""
     atom_names, res_names, res_ids, chain_ids, elements, xyz = \
         [], [], [], [], [], []
     box = None
+    serial_to_idx = {}
+    conect = set()
+    ended = False
     with open(path) as f:
         for line in f:
             rec = line[:6]
             if rec == "CRYST1":
                 box = np.array([float(line[6:15]), float(line[15:24]),
                                 float(line[24:33])]) / 10.0
-            elif rec in ("ATOM  ", "HETATM"):
+            elif rec in ("ATOM  ", "HETATM") and not ended:
+                try:
+                    serial_to_idx[int(line[6:11])] = len(atom_names)
+                except ValueError:
+                    pass
                 atom_names.append(line[12:16].strip())
                 res_names.append(line[17:21].strip().split()[0])
                 chain_ids.append(line[21].strip())
@@ -58,11 +68,22 @@ def read_pdb(path: str) -> PDBStructure:
                             float(line[46:54])])
                 el = line[76:78].strip() if len(line) > 76 else ""
                 elements.append(el if el else _guess_element(line[12:16]))
+            elif rec == "CONECT":
+                fields = [line[i:i + 5]
+                          for i in range(6, min(len(line), 31), 5)]
+                serials = [int(s) for s in fields if s.strip()]
+                if serials and serials[0] in serial_to_idx:
+                    a = serial_to_idx[serials[0]]
+                    for s in serials[1:]:
+                        if s in serial_to_idx:
+                            b = serial_to_idx[s]
+                            if a != b:
+                                conect.add((min(a, b), max(a, b)))
             elif rec == "ENDMDL":
-                break
+                ended = True        # keep scanning for trailing CONECTs
     coords = np.asarray(xyz, dtype=np.float64) / 10.0
     return PDBStructure(atom_names, res_names, res_ids, chain_ids, elements,
-                        coords, box)
+                        coords, box, conect=sorted(conect) or None)
 
 
 def read_pdb_traj(path: str) -> np.ndarray:

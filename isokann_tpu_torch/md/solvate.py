@@ -177,3 +177,14 @@ def water_triplets(struct: PDBStructure):
         if len(cur) == 3:
             trip.append((cur["O"], cur["H1"], cur["H2"]))
     return np.asarray(trip, np.int64).reshape(-1, 3)
+
+
+def water_constraint_pairs(struct: PDBStructure):
+    """The rigid-water constraints of ``struct`` as explicit (i, j, d)
+    pairs, O-H1, O-H2 and H1-H2 of each water (``water_triplets``): what
+    an OpenMM System's <Constraints> block holds for rigid TIP3P."""
+    out = []
+    for o, h1, h2 in water_triplets(struct):
+        out += [(int(o), int(h1), R_OH), (int(o), int(h2), R_OH),
+                (int(h1), int(h2), R_HH)]
+    return out

@@ -3,9 +3,10 @@ atom types, charges and the derived angle/dihedral/improper lists.
 
 Counterpart of ``isokann_tpu/md/topology.py``: the same residue-name and
 atom-name aliases, the candidate search over histidine tautomers,
-cysteine / cystine and N- / C-terminal template variants, peptide and
-disulfide bonds by geometry, and the improper rules.  Nucleic-acid
-templates are not ported, so their 5'/3' variants are not searched.
+cysteine / cystine, N- / C-terminal protein variants and the nucleic
+5'-OH / 3'-OH / nucleoside variants (the interior template as the
+fallback), peptide, O3'-P and disulfide bonds by geometry, and the
+improper rules.
 """
 
 from __future__ import annotations
@@ -150,10 +151,22 @@ def _resolve_residue(res, struct, is_first: bool, is_last: bool):
         candidates = ["HIS", "HID", "HIP" if "HIP" in amber.RESIDUES else "HID"]
     if name == "CYS":
         candidates = ["CYS", "CYX"]   # no HG -> disulfide-bonded cysteine
-    if is_first and name not in ("ACE", "NME"):
-        candidates = ["N" + c for c in candidates] + candidates
-    if is_last and name not in ("ACE", "NME", "NHE"):
-        candidates = ["C" + c for c in candidates] + candidates
+    if name in amber.NUCLEIC_RESIDUES:
+        # 5'/3'-terminal and nucleoside variants (Amber <res>5/<res>3/<res>N
+        # naming); most specific first, interior template as fallback
+        candidates = []
+        if is_first and is_last:
+            candidates.append(name + "N")
+        if is_first:
+            candidates.append(name + "5")
+        if is_last:
+            candidates.append(name + "3")
+        candidates.append(name)
+    else:
+        if is_first and name not in ("ACE", "NME"):
+            candidates = ["N" + c for c in candidates] + candidates
+        if is_last and name not in ("ACE", "NME", "NHE"):
+            candidates = ["C" + c for c in candidates] + candidates
 
     for cand in candidates:
         m = _try_match(cand, atom_names, res.atom_indices)

@@ -93,6 +93,11 @@ leave them in place; the hybrid and neighbor routes place them before
 every force and hand their forces back to the parents (the plain and
 dense routes do so inside ``md.forces.force_flat``), and every output
 frame is placed.  NPT is ``md.barostat.npt_langevin``.
+
+``MDSimulation.from_system`` wraps an ``MDSystem`` built elsewhere (an
+Amber prmtop through ``md.amberio``, a serialized OpenMM System through
+``md.openmm_xml``): the same set-up as ``__init__`` after its build, so
+an imported system takes the route a built one of its kind takes.
 """
 
 from __future__ import annotations
@@ -224,15 +229,8 @@ class MDSimulation(IsoSimulation):
             raise ValueError(f"MDSimulation runs in float32 only, not "
                              f"{dtype}: the kernels and the plain routes "
                              f"of this package are float32")
-        self.device = resolve_device(device)
-        if neighbor_mode not in ("cells", "verlet"):
-            raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
-        self.neighbor_mode = neighbor_mode
-        self.skin = float(skin)
-        self.bias = bias
-        if integrator not in ("langevin", "brownian"):
-            raise ValueError(f"unknown integrator {integrator!r}")
-        self.integrator = integrator
+        self._options(steps, temp, friction, step, integrator, bias,
+                      neighbor_mode, skin, device)
         if addwater and implicit is not None:
             raise ValueError("addwater and implicit solvent are exclusive")
         if pdb is None:
@@ -249,10 +247,6 @@ class MDSimulation(IsoSimulation):
             integrator=integrator, minimize=minimize,
             constraints=constraints, neighbor_mode=neighbor_mode, skin=skin,
             dispersion_correction=dispersion_correction)
-        self.steps = int(steps)
-        self.temp = float(temp)
-        self.friction = float(friction)
-        self.step = float(step)
         self.structure = read_pdb(pdb)
         nsolute = self.structure.natoms
         if addwater:
@@ -269,7 +263,6 @@ class MDSimulation(IsoSimulation):
         vsi, vsp, vsw = water_msites(self.structure)
         if len(vsi):
             self.system = attach_vsites(self.system, vsi, vsp, vsw)
-        self.masses3 = integrator_masses3(self.system)
         if constraints is not None and integrator != "langevin":
             raise ValueError("constraints require the langevin integrator")
         wt = water_triplets(self.structure) if rigidwater else None
@@ -284,6 +277,84 @@ class MDSimulation(IsoSimulation):
         if wt is not None and not self.system.dense_pairs:
             # the constraints replace the waters' bond and angle terms
             self.system = NB.strip_rigid_water_bonded(self.system, wt)
+        if addwater and features is None:
+            features = solute_pairs(nsolute)
+        self._setup(self.structure.coords, minimize, features, pdb)
+
+    @classmethod
+    def from_system(cls, system, x0, steps: int = 100, temp: float = 310.0,
+                    friction: float = 1.0, step: float = 0.002,
+                    integrator: str = "langevin", features=None,
+                    minimize: bool = False, bias=None, constraints=None,
+                    constraint_pairs=None, source=None, device=None):
+        """An MDSimulation around a prebuilt ``MDSystem``: the entry point
+        of imported systems (``md.amberio.system_from_prmtop``,
+        ``md.openmm_xml.load_system_xml``) whose parameters are used as
+        they are; no PDB or force-field lookup runs.
+
+        - ``x0``: start coordinates, (natoms, 3) or flat (3 natoms,) [nm]
+        - ``constraint_pairs``: explicit (i, j, d_nm) distance constraints
+          (e.g. the XML ``<Constraints>`` block, OpenMM's rigid water);
+          combined with the ``constraints`` class string if both are given
+        - ``features``: pair list / atom list / callable (a radius needs a
+          PDB and raises); default all pairs under 100 atoms, else 100
+          random pairs
+        - ``source``: provenance kept in ``constructor`` and ``pdbfile``
+        - ``device``: where walkers live (default "cuda", raising without
+          a GPU); the system's tensors must be there
+
+        The route, plans, constraints and featurizer follow from the system
+        as in ``__init__``: an imported system on the card takes its
+        kernel route (A, D or E) or the plain / dense route exactly as a
+        built one does."""
+        self = cls.__new__(cls)
+        self._options(steps, temp, friction, step, integrator, bias,
+                      "cells", 0.2, device)
+        if system.device.type != self.device.type:
+            raise ValueError(f"the system's tensors are on {system.device}, "
+                             f"the simulation's device is {self.device}: "
+                             f"build the system with device={device!r}")
+        if (constraints is not None or constraint_pairs) \
+                and integrator != "langevin":
+            raise ValueError("constraints require the langevin integrator")
+        self.constructor = dict(
+            from_system=True, source=source, steps=steps, temp=temp,
+            friction=friction, step=step, integrator=integrator,
+            features=features, minimize=minimize, constraints=constraints,
+            constraint_pairs=constraint_pairs)
+        self.pdbfile = source
+        self.structure = None
+        self.system = system
+        self.constraint_set = (
+            ConstraintSet(self.system, constraints, pairs=constraint_pairs)
+            if constraints is not None or constraint_pairs else None)
+        self._setup(x0, minimize, features, None)
+        return self
+
+    def _options(self, steps, temp, friction, step, integrator, bias,
+                 neighbor_mode, skin, device):
+        """The run options, checked, shared by ``__init__`` and
+        ``from_system``."""
+        if neighbor_mode not in ("cells", "verlet"):
+            raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
+        if integrator not in ("langevin", "brownian"):
+            raise ValueError(f"unknown integrator {integrator!r}")
+        self.device = resolve_device(device)
+        self.steps = int(steps)
+        self.temp = float(temp)
+        self.friction = float(friction)
+        self.step = float(step)
+        self.integrator = integrator
+        self.bias = bias
+        self.neighbor_mode = neighbor_mode
+        self.skin = float(skin)
+
+    def _setup(self, x0, minimize, features, pdb):
+        """The set-up after the system and its constraints exist, shared by
+        ``__init__`` and ``from_system``: integrator masses, the force
+        route and its plan, the start state (minimized on request), the
+        neighbor plan sized from it and the featurizer."""
+        self.masses3 = integrator_masses3(self.system)
         self.route = force_route(self.system,
                                  self.constraint_set is not None)
         self.plan = (LK.LangevinPlan(self.system, self.temp, self.friction,
@@ -295,16 +366,14 @@ class MDSimulation(IsoSimulation):
         self.overflows = 0     # neighbor-cell overflows seen (and regrown)
         self.vplan = None      # the Verlet lists' plan, built at first use
         self.verlet_diag = None   # the last Verlet run's diagnostics
-        self._x0 = torch.as_tensor(self.structure.coords.reshape(-1),
-                                   dtype=torch.float32, device=self.device)
+        self._x0 = torch.as_tensor(x0, dtype=torch.float32,
+                                   device=self.device).reshape(-1)
         if minimize:
             self._x0 = self.minimize(self._x0)
         # capacity from the float32 start coordinates, as the reference
         self.nbplan = (NB.NeighborPlan(
             self.system, x0=self._x0.cpu().numpy().reshape(-1, 3))
             if self.route == "neighbor" else None)
-        if addwater and features is None:
-            features = solute_pairs(nsolute)
         self.featurizer = default_featurizer(pdb, self.natoms, features)
 
     # ---- accessors ---------------------------------------------------------
@@ -350,13 +419,15 @@ class MDSimulation(IsoSimulation):
         return F.potential_energy_flat(self.system, x)
 
     def minimize(self, x=None, maxiter=500):
-        """FIRE energy minimization of ``x`` (default: the start state)."""
+        """FIRE energy minimization of ``x`` (default: the start state); on
+        the card, a system without a box replays its steps from a CUDA
+        graph (``minimize_energy(graph=True)``)."""
         from ..md.minimize import minimize_energy
         x = self._x0 if x is None else torch.as_tensor(
             x, dtype=torch.float32, device=self.device)
         return place_vsites_flat(self.system, minimize_energy(
             lambda z: F.potential_energy_flat(self.system, z), x,
-            maxiter=maxiter))
+            maxiter=maxiter, graph=self.system.box is None))
 
     # ---- propagation -------------------------------------------------------
 

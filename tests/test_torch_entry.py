@@ -64,7 +64,35 @@ def test_port_imports_no_jax():
         "simulators.mdsim", "simulators.langevin", "targets", "models",
         "analysis.msm", "goldens", "workflows", "ops.align",
         "analysis.minimumpath", "simulators.base", "ensemble",
-        "weights")} <= walked, out.stdout
+        "weights", "md.amberio", "md.openmm_xml", "md.importers",
+        "md.ligand", "md.pdbio", "md.vsites", "md.cmap")} <= walked, \
+        out.stdout
+
+
+def test_md_exports_match_jax():
+    """The port's ``md`` package exports every public name of the JAX
+    package's ``md`` (the importers, ligand perception and the builders
+    among them), and ``MDSimulation.from_system`` through the class."""
+    import ast
+
+    import isokann_tpu.md as jmd
+    import isokann_tpu_torch.md as tmd
+    from isokann_tpu_torch.md import amber, fixtures
+
+    # the names the JAX package's md/__init__.py imports (its submodules
+    # that other tests load are attributes too, but not exports)
+    with open(jmd.__file__) as f:
+        tree = ast.parse(f.read())
+    names = {a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert len(names) > 30
+    assert {n for n in names if not hasattr(tmd, n)} == set()
+    for name in ("register_residue", "NUCLEIC_RESIDUES", "make_nterminal",
+                 "make_cterminal"):
+        assert hasattr(amber, name), name
+    for name in ("build_nucleic", "build_alanine_dipeptide"):
+        assert callable(getattr(fixtures, name)), name
+    assert callable(itt.MDSimulation.from_system)
 
 
 def test_propagate_and_randx0_shapes():
