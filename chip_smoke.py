@@ -52,6 +52,17 @@ port's entry points, and the goldens after them:
   ``examples/dna.py`` runs it (no kernel) and in PME water (E), and the
   ligand paths (``parameterize_ligand``, frcmod + mol2, an amber14-style
   force-field XML; A once);
+- multi-GPU walker sharding at world size 1 (phase ``parallel``, after
+  the quickstart): an NCCL group of one rank through
+  ``parallel.distributed.initialize``, ``distributed_iso_step`` on the
+  quickstart's 100 start points at nk=5 (512 padded walkers, one launch
+  of kernel A a step) for 3 steps, the sharded train steps against the
+  unsharded step; kernel A at B=512 against two launches of 256 with
+  walker offsets 0 and 256 (the same bits); alanine in float64 on the
+  card (the plain versions, no kernel) against the CPU (the group comes
+  up while nvcc runs in phase 2); in phase 10, trp-cage's hybrid
+  recursion run as two ``WalkerShard`` halves of 8 walkers against the
+  whole batch (the noise drawn on the card);
 - Girsanov-weighted optimal-control sampling on the chi that path
   trained: ``optcontrol`` + a biased ``propagate`` of 100 x 5 walkers, then
   ``run_girsanov(generations=3, iter=100, kde=50, forcescale=0.5)``: the
@@ -175,6 +186,7 @@ JAX.
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -319,8 +331,9 @@ def constraints_phase(vpdb, stamp):
     on the hybrid route (``examples/villin.py`` at ``small=True``: OBC2,
     0.5 nm radius features, NesterovRegularized, nx 8, nk 1, one
     generation of resample_strat(2) + resample_kde(2) + run(10); steps
-    cut 50 -> 10; from phase 15's minimized structure): kernel D once a
-    constrained step.  Returns D's launches and the step times."""
+    cut 50 -> 10, and to 5 for the ``parallel`` phase's time; from phase
+    15's minimized structure): kernel D once a constrained step.  Returns
+    D's launches and the step times."""
     import numpy as np
     import torch
     import isokann_tpu_torch as itt
@@ -361,7 +374,7 @@ def constraints_phase(vpdb, stamp):
           f"{t_ala:.3f}s {stamp}")
 
     t1 = time.perf_counter()
-    vsim = itt.MDSimulation(pdb=vpdb, steps=10, implicit="obc2",
+    vsim = itt.MDSimulation(pdb=vpdb, steps=5, implicit="obc2",
                             constraints="HBonds", features=0.5)
     vcs = vsim.constraint_set
     require(vsim.route == "hybrid" and vcs.ngeneric > 250
@@ -1546,11 +1559,11 @@ def importers_phase(tpdb, stamp):
                 dpdb = os.path.join(d, "dna_at.pdb")
                 at = build_nucleic("AT")
                 write_pdb(dpdb, at)
-                dsim = itt.MDSimulation(pdb=dpdb, steps=50, implicit="obc2",
+                dsim = itt.MDSimulation(pdb=dpdb, steps=20, implicit="obc2",
                                         constraints="HBonds", minimize=True)
                 torch.cuda.synchronize()
             before = sum(k.launches for k in _counted_kernels())
-            with t("(d) propagate 4 x 2 x 50"):
+            with t("(d) propagate 4 x 2 x 20"):
                 yd = dsim.propagate(dsim.coords[None].repeat(4, 1), 2,
                                     gen=gen)
                 torch.cuda.synchronize()
@@ -1715,6 +1728,198 @@ def importers_phase(tpdb, stamp):
                 a_err=kerr["A"], d_err=kerr["D"], e_err=kerr["E"],
                 t=dict(t.total),
                 seconds=sum(t.total.values()))
+
+
+def nccl_up(dev):
+    """An NCCL group of one rank brought up through ``parallel.
+    distributed.initialize`` with the launcher's environment of ``torchrun
+    --nproc_per_node=1`` (restored once the group is up), a file store in
+    a temporary directory and an explicit timeout, then its first
+    all_reduce (NCCL's communicator comes up there).  Run while nvcc
+    builds the kernels (phase 2); the group stays up, unused, until phase
+    5a.  Returns the seconds and the store's directory."""
+    import torch
+    import torch.distributed as dist
+    from isokann_tpu_torch import parallel as P
+    t1 = time.perf_counter()
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        P.distributed.initialize(f"file://{tmp}/store", timeout=60)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    probe = torch.ones(1, device=dev)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    require(float(probe) == 1.0, "NCCL all_reduce over a group of one")
+    return time.perf_counter() - t1, tmp
+
+
+def parallel_phase(sim, data, plan, x, nccl, stamp):
+    """Multi-GPU walker sharding at world size 1 (``parallel``): the NCCL
+    group of one rank that ``nccl_up`` brought up during phase 2
+    (``nccl``: its seconds and store) is torn down at the end, so that
+    later phases see no group.  On it: ``distributed_iso_step`` on the
+    quickstart's sim and start points at nk=5 (500 walkers padded to 512
+    through kernel A, one launch a step) for 3 steps;
+    ``sharded_train_step`` and ``shardmap_train_step`` (their MIN / MAX
+    and summed all_reduce through NCCL) against the same step computed
+    unsharded on the card.  Then kernel A keyed by the global walker: one
+    launch at B=512 against two of 256 with walker offsets 0 and 256 (the
+    same bits), with offset 256 against its plain version (noiseless),
+    and its time with the offset argument; and alanine in float64 on the
+    card (the plain versions: no kernel launches) against the same plan
+    on CPU tensors.  The walker-sharded recursion on the card (a
+    ``WalkerShard`` over a CUDA generator) is held in phase 10."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import isokann_tpu_torch as itt
+    from isokann_tpu_torch import parallel as P
+    from isokann_tpu_torch._device import WalkerShard
+    from isokann_tpu_torch.md import langevin_kernel as LK
+
+    dev = x.device
+    out = {}
+    tmp = None
+    try:
+        out["nccl_s"], tmp = nccl
+        require(dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1,
+                "an NCCL group of one rank")
+        mesh = P.make_mesh()
+        require(P.device_count() == 1 and mesh.device == dev,
+                "the mesh is the card")
+
+        # distributed_iso_step: 100 x 5 walkers, 3 steps, kernel A
+        model = sim.defaultmodel(n=data.features.shape[-1],
+                                 gen=itt.make_generator(20))
+        P.replicate(mesh, model)
+        step = P.distributed_iso_step(mesh, sim, model,
+                                      itt.AdamRegularized(), nk=5)
+        gen = itt.make_generator(21)
+        LK.langevin_middle.launches = 0
+        t1 = time.perf_counter()
+        losses = []
+        for _ in range(3):
+            loss, ys = step(data.coords, gen=gen)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        out["iso_step_s"] = time.perf_counter() - t1
+        out["a_launches"] = LK.langevin_middle.launches
+        require(np.all(np.isfinite(losses)), "distributed_iso_step: finite "
+                                             "losses")
+        require(tuple(ys.shape) == (100, 5, 66)
+                and bool(torch.isfinite(ys).all()),
+                "distributed_iso_step: bursts (100, 5, 66)")
+        require(out["a_launches"] == 3, "distributed_iso_step: one kernel A "
+                                        "launch a step")
+
+        # the train steps through NCCL against the unsharded step
+        xs, ys_f = data.features, data.propfeatures
+        errs = {}
+        for name, make in (("sharded", P.sharded_train_step),
+                           ("shardmap", P.shardmap_train_step)):
+            m1 = itt.pairnet(xs.shape[-1], gen=itt.make_generator(22)).to(dev)
+            m2 = copy.deepcopy(m1)
+            loss1 = float(make(mesh, m1, itt.AdamRegularized())(
+                P.shard_batch(mesh, xs), P.shard_batch(mesh, ys_f),
+                None))
+            opt = itt.AdamRegularized()(m2.parameters())
+            with torch.no_grad():
+                kchi = torch.mean(m2(ys_f), dim=1)
+                target = (kchi - kchi.min()) / (kchi.max() - kchi.min())
+            opt.zero_grad()
+            loss2 = torch.sum((m2(xs) - target) ** 2) / xs.shape[0]
+            loss2.backward()
+            opt.step()
+            perr = max(float((a - b).detach().abs().max()) for a, b in
+                       zip(m1.parameters(), m2.parameters()))
+            lrel = abs(loss1 - float(loss2)) / abs(float(loss2))
+            errs[name] = (lrel, perr)
+            require(lrel < 1e-6 and perr < 1e-6,
+                    f"{name}_train_step at world size 1 = the unsharded "
+                    f"step")
+    finally:
+        P.distributed.shutdown()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    require(not dist.is_initialized(), "the group is torn down")
+
+    # kernel A keyed by the global walker
+    v = sim.random_velocities(itt.make_generator(23), x.shape)
+    whole = LK.langevin_middle(plan, x, v, 100, itt.make_generator(24))
+    halves = [LK.langevin_middle(plan, x[a:b].contiguous(),
+                                 v[a:b].contiguous(), 100,
+                                 itt.make_generator(24), walker_offset=a)
+              for a, b in ((0, 256), (256, 512))]
+    same = all(torch.equal(torch.cat([halves[0][k], halves[1][k]]),
+                           whole[k]) for k in (0, 1))
+    require(same, "kernel A at B=512 = two launches of 256 with walker "
+                  "offsets 0 and 256, bit for bit")
+    xo, vo = x[256:].contiguous(), v[256:].contiguous()
+    xk, vk = LK.langevin_middle(plan, xo, vo, 10, None, noise=False,
+                                walker_offset=256)
+    xp, vp = LK.langevin_middle_plain(
+        plan, xo, vo, 10, WalkerShard(itt.make_generator(0), 256, 512),
+        noise=False, walker_offset=256)
+    xrel = float((xk - xp).abs().max() / xp.abs().max())
+    vrel = float((vk - vp).abs().max() / vp.abs().max())
+    require(xrel < 1e-5 and vrel < 1e-4, "kernel A with the walker offset "
+                                         "against its plain version")
+    g = itt.make_generator(25)
+    out["ms_offset"] = cuda_ms(lambda: LK.langevin_middle(
+        plan, x, v, 100, g, walker_offset=512), reps=5)
+
+    # alanine in float64 on the card: the plain versions, no kernel
+    n0 = {k: k.launches for k in _counted_kernels()}
+    t1 = time.perf_counter()
+    s64 = itt.MDSimulation(steps=10, dtype=torch.float64)
+    rng = np.random.default_rng(26)
+    xs64 = (s64.coords[None].cpu().numpy()
+            + rng.normal(scale=0.002, size=(4, s64.dim)))
+    vs64 = rng.normal(scale=0.3, size=xs64.shape)
+    xg, _ = s64._integrate(torch.as_tensor(xs64, device=dev),
+                           torch.as_tensor(vs64, device=dev), 10, None)
+    # the same plan's plain version on CPU tensors
+    xc, _ = s64._integrate(torch.as_tensor(xs64), torch.as_tensor(vs64),
+                           10, None)
+    f64_err = float((xg.cpu() - xc).abs().max())
+    ys64 = s64.propagate(s64.coords[None].repeat(2, 1), 2, gen=27)
+    torch.cuda.synchronize()
+    out["f64_s"] = time.perf_counter() - t1
+    require(s64.plain_versions and s64.route == "fused"
+            and xg.dtype == torch.float64 and ys64.dtype == torch.float64
+            and bool(torch.isfinite(ys64).all()),
+            "float64 alanine on the card: the fused route's plain version")
+    require(all(k.launches == n for k, n in n0.items()),
+            "float64 runs no kernel")
+    require(f64_err < 1e-9, "float64 noiseless 10 steps on the card = the "
+                            "CPU's (1e-9 nm)")
+    print(f"  NCCL group of 1: set-up {out['nccl_s']:.3f}s (initialize + "
+          f"first all_reduce, during phase 2's nvcc); "
+          f"distributed_iso_step 100 x 5 (512 walkers) x 3 steps {out['iso_step_s']:.3f}s, losses "
+          f"{np.round(losses, 5).tolist()}, kernel A launches "
+          f"{out['a_launches']}; train steps vs unsharded (loss rel, "
+          f"params abs): "
+          f"{ {k: (f'{a:.1e}', f'{b:.1e}') for k, (a, b) in errs.items()} }"
+          f" (tol 1e-6, 1e-6)", flush=True)
+    print(f"  kernel A B=512 = 2 x 256 with walker offsets 0/256: same "
+          f"bits; with offset 256 vs plain, noiseless 10 steps: rel x "
+          f"{xrel:.2e} (tol 1e-5), rel v {vrel:.2e} (tol 1e-4); kernel A "
+          f"B=512 x100 steps with walker_offset=512: {out['ms_offset']:.3f} "
+          f"ms {stamp}", flush=True)
+    print(f"  float64 alanine on the card (route fused, plain versions, no "
+          f"kernel launch): noiseless 10 steps vs the CPU, max "
+          f"{f64_err:.2e} nm (tol 1e-9); propagate 2 x 2 finite; "
+          f"{out['f64_s']:.3f}s", flush=True)
+    return out
+
 
 
 def analysis_goldens_phase(dw_iso, tw_iso, stamp):
@@ -1935,7 +2140,7 @@ def main():
     from isokann_tpu_torch import goldens as G
     from isokann_tpu_torch import native
     from isokann_tpu_torch import sample as S
-    from isokann_tpu_torch._device import noise_generator
+    from isokann_tpu_torch._device import WalkerShard, noise_generator
     from isokann_tpu_torch import workflows as W
     from isokann_tpu_torch.md.fixtures import build_peptide, peptide_pdb
     from isokann_tpu_torch.md.minimize import minimize_energy
@@ -2016,6 +2221,10 @@ def main():
               f"eager {fire_s[False]:.3f}s, max coordinate difference "
               f"{fire_err:.3e} nm (tol 1e-5) {stamp}", flush=True)
         require(fire_err < 1e-5, "FIRE on the CUDA graph = the eager loop")
+        # phase 5a's NCCL group, in the time the host waits for nvcc (on
+        # this thread: no other thread may touch the card while FIRE
+        # captures its graph)
+        nccl = nccl_up(dev)
         for job in jobs:
             job.result()
     t1 = time.perf_counter()
@@ -2045,7 +2254,8 @@ def main():
                        f"peptides {t_min:.2f}s + {ts_pep:.2f}s + "
                        f"{tv_pep:.2f}s meanwhile; torch._dynamo imported "
                        f"{dynamo_s[0]:.2f}s meanwhile "
-                       f"({t_wait_dynamo:.2f}s waited)")
+                       f"({t_wait_dynamo:.2f}s waited); NCCL group "
+                       f"{nccl[0]:.2f}s meanwhile")
 
     # ---- 3. kernel against plain ------------------------------------------
     t0 = time.perf_counter()
@@ -2222,6 +2432,13 @@ def main():
           f"{rate:.4g} walker-steps/s, bound {bL:.3f} ms "
           f"({bL / msL:.2%} of it) {stamp}")
     phase("timing", t0)
+
+    # ---- 5a. parallel: walker sharding through an NCCL group of one -------
+    t0 = time.perf_counter()
+    par = parallel_phase(sim, data, plan, x, nccl, stamp)
+    phase("parallel", t0, f"NCCL set-up {par['nccl_s']:.3f}s (phase 2) "
+                          f"distributed_iso_step {par['iso_step_s']:.3f}s "
+                          f"float64 {par['f64_s']:.3f}s")
 
     # ---- 5b. lag_tools: the lag sweep, rates and CK test on the quickstart --
     # The quickstart's trained chi through the port's lag tools, at the
@@ -3239,9 +3456,30 @@ def main():
           f"{temp_a:.2f} K (B={BT} after {NT} steps; kernel A {temp:.2f} K)")
     require(abs(temp_a - temp) / temp < 0.01,
             "alanine: plain recursion and kernel A at the same temperature")
+    # walker sharding on the card: trp-cage's hybrid recursion (velocities
+    # and per-step noise through a WalkerShard over a CUDA generator) on
+    # rows [0, 4) and [4, 8) against the 8 walkers at once; other noise
+    # would move the walkers by ~1e-3 nm in 5 steps
+    xw = xg[:8].contiguous()
+    t1 = time.perf_counter()
+    y_whole = tsim._run(xw, 5, itt.make_generator(46))
+    y_halves = torch.cat([
+        tsim._run(xw[a:a + 4].contiguous(), 5,
+                  WalkerShard(itt.make_generator(46), a, 8))
+        for a in (0, 4)])
+    torch.cuda.synchronize()
+    t_shard = time.perf_counter() - t1
+    shard_err = float((y_halves - y_whole).abs().max())
+    print(f"  walker-sharded hybrid recursion on the card, 2 x 4 of 8 "
+          f"walkers x 5 steps: max |halves - whole| {shard_err:.2e} nm (tol "
+          f"1e-5), same bits {torch.equal(y_halves, y_whole)}; "
+          f"{t_shard:.3f}s")
+    require(bool(torch.isfinite(y_whole).all()) and shard_err <= 1e-5,
+            "two WalkerShard halves on the card = the whole batch")
     phase("gb_vs_plain", t0, "OBC2, vacuum RF and periodic RF at B=1/37/256, "
                              "villin at B=1/2/37, same bits, row 0 at "
-                             "B=37/1024, noiseless steps, temperature")
+                             "B=37/1024, noiseless steps, temperature, "
+                             "walker shards")
 
     # ---- 11. gb_force timing ---------------------------------------------------
     t0 = time.perf_counter()
@@ -4147,7 +4385,7 @@ def main():
         "source": "isokann_tpu_torch/csrc/langevin_middle.cu",
         "replaces": "isokann_tpu/md/pallas_md.py:318",
         "launches": (launches + a_lag + a_adapt + a_ens + eph["lm_launches"]
-                     + iph["a_launches"] + a_golden),
+                     + iph["a_launches"] + a_golden + par["a_launches"]),
         "max_abs_err": lm_err,
         "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bound_by,

@@ -67,6 +67,7 @@ from .targets import (DomainError, Stabilize, TransformCross,  # noqa: E402
                       TransformSVD, TransformSVDRev, expectation, isotarget,
                       koopman, residual_linear, residual_ritz,
                       residual_subspace, shiftscale)
+from . import parallel  # noqa: E402
 from .workflows import (adaptive_metadynamics, cktest,  # noqa: E402
                         escalate_lag, lag_sweep, rates_resolved, run_both,
                         run_girsanov, run_kde_dash, run_metadynamics,

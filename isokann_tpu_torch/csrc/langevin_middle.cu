@@ -43,8 +43,10 @@
 //
 // Noise: curand's Philox4x32-10, keyed by (seed, walker, step).  The 4
 // coordinates 4q..4q+3 of step s take the normal4 at offset s * 4 *
-// ceil(3N/4) + 4q of subsequence `walker`, drawn by lane q mod 32: a
-// walker's noise depends on neither the batch nor the block layout.
+// ceil(3N/4) + 4q of subsequence walker_offset + w (w the walker within the
+// launch, walker_offset the global index of the launch's first walker),
+// drawn by lane q mod 32: a walker's noise depends on neither the batch, nor
+// the block layout, nor how a walker-sharded batch is cut into launches.
 // noise == 0 runs the noiseless recursion (the parity mode of the TPU
 // kernel's interpret run).
 
@@ -89,8 +91,9 @@ __global__ void __launch_bounds__(32 * kWarps)
                            const float* __restrict__ ftab,
                            const float4* __restrict__ dense,
                            const int* __restrict__ aslots, int nsteps,
-                           unsigned long long seed, int noise, float dt,
-                           float a, float b) {
+                           unsigned long long seed,
+                           unsigned long long walker_offset, int noise,
+                           float dt, float a, float b) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(g);
   stage(g, L, itab, ftab, dense, aslots, smem);
@@ -135,7 +138,7 @@ __global__ void __launch_bounds__(32 * kWarps)
     if (noise) {
       for (int q = lane; q < L.nq; q += 32) {
         curandStatePhilox4_32_10_t st;
-        curand_init(seed, (unsigned long long)w,
+        curand_init(seed, walker_offset + (unsigned long long)w,
                     ((unsigned long long)s * L.nq + q) * 4ull, &st);
         const float4 z4 = curand_normal4(&st);
         wz[4 * q] = z4.x;
@@ -203,14 +206,16 @@ extern "C" int lm_forces(const void* x, void* f, int B, const void* itab,
 }
 
 // x, v: (B, 3N) float32 row-major on the device, advanced in place by
-// nsteps LangevinMiddle steps.  Returns a cudaError_t.
+// nsteps LangevinMiddle steps; walker_offset is the global index of the
+// launch's first walker (its noise subsequence).  Returns a cudaError_t.
 extern "C" int lm_langevin_middle(void* x, void* v, int B, const void* itab,
                                   const void* ftab, const void* dense,
                                   const void* aslots, int K, int natoms,
                                   int np, int nb, int na, int nd, int use_rf,
                                   float rc, float krf, int periodic, float bx,
                                   float by, float bz, int nsteps,
-                                  unsigned long long seed, int noise,
+                                  unsigned long long seed,
+                                  unsigned long long walker_offset, int noise,
                                   float dt, float a, float b, void* stream) {
   Geometry g;
   size_t smem = 0;
@@ -224,6 +229,6 @@ extern "C" int lm_langevin_middle(void* x, void* v, int B, const void* itab,
       static_cast<float*>(x), static_cast<float*>(v), B, g,
       static_cast<const int*>(itab), static_cast<const float*>(ftab),
       static_cast<const float4*>(dense), static_cast<const int*>(aslots),
-      nsteps, seed, noise, dt, a, b);
+      nsteps, seed, walker_offset, noise, dt, a, b);
   return cudaGetLastError();
 }

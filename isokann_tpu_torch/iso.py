@@ -25,6 +25,17 @@ after ``GRAPH_WARMUP`` eager steps of its input shape (``_StepGraph``):
 the same kernels with a few launches, so that training is not bound by
 the host's launch rate.
 
+Data parallelism (``shard=True``, the default, as the reference's): with
+more than one rank (``parallel.distributed.initialize``) and a capacity
+bucket that divides by their number, a fused run shards its rows over
+the ranks.  Each rank holds its rows of the features, bursts, weights and
+mask; the Koopman expectation is gathered, so the fused target (its
+shift-scale bounds, quantiles and d > 1 weights) is the global one; each
+optimizer step's gradients and loss are summed over the ranks; the
+minibatch permutation is drawn on every rank from generators in the same
+state.  So the sharded run equals the unsharded one.  Above one rank the
+steps run eagerly: a collective is not captured in the step's graph.
+
 Targets: a fused target (``TransformShiftscale``) is computed on the
 device inside the loop, whose losses reach the host once per ``run``.  A
 host target (``TransformISA``, the default for d > 1, and the other
@@ -82,14 +93,19 @@ def pad_bursts(ys, cap):
 
 
 @torch.no_grad()
-def fused_target(model, transform, ys, mask, n_true):
+def fused_target(model, transform, ys, mask, n_true, gather=None):
     """An iteration's target and loss weights under a fused transform:
     ``transform`` of ``model``'s Koopman expectation over the padded bursts
     ``ys``, and for d > 1 each output weighted by 1 / (std + 1e-12) over
     the real rows (the masked std, ddof 0), else ones.  A model with a
     leading member axis gives (E, cap, d) targets and (E, 1, d) weights;
-    one without, (cap, d) and (1, d)."""
-    target = transform(expectation(model, ys))
+    one without, (cap, d) and (1, d).  ``gather`` makes the expectation
+    over a rank's rows of ``ys`` the whole batch's (``mask`` is then the
+    whole batch's)."""
+    kchi = expectation(model, ys)
+    if gather is not None:
+        kchi = gather(kchi)
+    target = transform(kchi)
     if target.shape[-1] == 1:
         return target, torch.ones(target.shape[:-2] + (1, 1),
                                   device=target.device)
@@ -256,7 +272,7 @@ class Iso(GraphedSteps):
 
     def __init__(self, data=None, sim=None, nx=100, nk=2, model=None,
                  opt=None, target=None, minibatch=100, nout=1, gen=None,
-                 loggers=None, validation=None, transform=None):
+                 loggers=None, validation=None, transform=None, shard=True):
         self.gen = make_generator(gen)
         if data is None:
             if sim is None:
@@ -282,6 +298,9 @@ class Iso(GraphedSteps):
                       else TransformISA())
         self.target = target
         self.minibatch = minibatch
+        # data parallelism over the ranks of a process group (fused runs)
+        self.shard = shard
+        self._mesh = None
         self.losses: List[float] = []
         self.loggers = list(loggers) if loggers else []
         if validation is not None:
@@ -432,6 +451,16 @@ class Iso(GraphedSteps):
         bs = cap if (mb == 0 or cap < mb) else mb
         return pad_rows(xs, cap), mask, float(nx), cap, bs, cap // bs
 
+    def _shard_mesh(self, cap):
+        """The mesh a fused run of capacity ``cap`` shards over, or None:
+        ``shard``, more than one rank, and a bucket that divides by their
+        number (the reference's rule)."""
+        from .parallel import device_count, make_mesh
+        count = device_count()
+        if self.shard and count > 1 and cap % count == 0:
+            return make_mesh()
+        return None
+
     def _run_fused(self, n, epochs):
         """n iterations of a fused target; returns the device losses."""
         xs, mask, n_true, cap, bs, nb = self._padded()
@@ -440,12 +469,29 @@ class Iso(GraphedSteps):
         def transform(kchi):
             return self.target.fused_target(kchi, mask, n_true)
 
-        losses = []
-        for _ in range(n):
-            target, w = fused_target(self.model, transform, ys, mask, n_true)
-            for _ in range(epochs):
-                losses.append(self._epoch(xs, target, w, mask, n_true, cap,
-                                          bs, nb))
+        mesh = self._shard_mesh(cap)
+        gather, rows = None, slice(0, cap)
+        if mesh is not None:
+            from .parallel import replicate
+            replicate(mesh, self.model)
+            replicate(mesh, self.optimizer)
+            rows = mesh.rows(cap)
+            xs = xs[rows]
+            ys = (WeightedSamples(ys.values[rows], ys.weights[rows])
+                  if isinstance(ys, WeightedSamples) else ys[rows])
+            gather = mesh.all_gather
+        self._mesh = mesh
+        try:
+            losses = []
+            for _ in range(n):
+                target, w = fused_target(self.model, transform, ys, mask,
+                                         n_true, gather)
+                for _ in range(epochs):
+                    losses.append(self._epoch(xs, target[rows], w,
+                                              mask[rows], n_true, cap, bs,
+                                              nb, rows))
+        finally:
+            self._mesh = None
         return losses
 
     def _train_iteration(self, target, epochs):
@@ -466,16 +512,39 @@ class Iso(GraphedSteps):
         self.optimizer.zero_grad(set_to_none=True)
         loss = torch.sum(((self.model(x) - y) * w) ** 2 * m[:, None]) / norm
         loss.backward()
+        if self._mesh is not None:
+            from .parallel.mesh import sum_gradients
+            loss = sum_gradients(self._mesh, list(self.model.parameters()),
+                                 loss.detach())[0]
         self.optimizer.step()
         return loss.detach()
 
-    def _epoch(self, xs, target, w, mask, n_true, cap, bs, nb):
+    def _step(self, x, y, w, m, norm):
+        if self._mesh is not None:
+            # no CUDA graph above one rank: its all_reduce is not captured
+            return self._eager_step(x, y, w, m, norm)
+        return super()._step(x, y, w, m, norm)
+
+    def _epoch(self, xs, target, w, mask, n_true, cap, bs, nb,
+               rows=None):
+        """One epoch on the rows ``rows`` of the capacity bucket (all of
+        them unless a sharded run holds only its own): a rank's share of
+        each minibatch is the part of it that falls in its rows."""
         if nb == 1 and bs == cap:
             # full batch: a permutation would not change the gradient
             return self._step(xs, target, w, mask, n_true)
         scale = cap / n_true
         perm = torch.randperm(cap, generator=self.gen)[:nb * bs]
-        perm = host_to(perm.reshape(nb, bs), xs.device)
+        perm = perm.reshape(nb, bs)
+        if rows is not None and rows != slice(0, cap):
+            ls = []
+            for idx in perm:
+                idx = idx[(idx >= rows.start) & (idx < rows.stop)]
+                idx = host_to(idx - rows.start, xs.device)
+                ls.append(self._step(xs[idx], target[idx], w,
+                                     mask[idx] * scale, bs))
+            return torch.stack(ls).sum() * bs / cap
+        perm = host_to(perm, xs.device)
         ls = [self._step(xs[idx], target[idx], w, mask[idx] * scale, bs)
               for idx in perm]
         return torch.stack(ls).sum() * bs / cap

@@ -158,7 +158,8 @@ class MonteCarloBarostat:
         dV = dv_scale * u_dv
         Vn = V + dV
         f = (Vn / V) ** (1.0 / 3.0)
-        centers = torch.matmul(self.center_M, x)
+        # the float32 table promoted to float64 walkers, as JAX promotes
+        centers = torch.matmul(self.center_M.to(x.dtype), x)
         xn = x + ((f - 1.0) * centers)[self.mol_id]
         boxn = box * f
         if self.plan is not None and not self.covers(boxn):
@@ -199,7 +200,12 @@ def npt_langevin(sim, x0=None, gen=None, steps=1000, pressure=1.0,
     temp = float(temp if temp is not None else sim.temp)
     gen = make_generator(0 if gen is None else gen)
     x = (sim.coords if x0 is None else torch.as_tensor(
-        x0, dtype=torch.float32, device=sim.device)).reshape(1, -1)
+        x0, dtype=sim.coords.dtype, device=sim.device)).reshape(1, -1)
+    # a float64 simulation takes the tensor sweep, no kernel; the box
+    # state stays float32, as the JAX package keeps it
+    sweep = None
+    if getattr(sim, "plain_versions", False):
+        from .neighbor import tensor_sweep as sweep
     baro = MonteCarloBarostat(sys, pressure=pressure, temp=temp,
                               interval=interval, x0=x)
 
@@ -209,7 +215,8 @@ def npt_langevin(sim, x0=None, gen=None, steps=1000, pressure=1.0,
         def force(xf, box):
             # the analytic path: place the sites, hand their forces back
             xp = place_vsites_flat(sys, xf)
-            f = force_flat_neighbor(sys, xp, baro.plan, box=box)
+            f = force_flat_neighbor(sys, xp, baro.plan, sweep=sweep,
+                                    box=box)
             return redistribute_forces_flat(sys, f, xp)
 
         def block_box(box):

@@ -74,11 +74,12 @@ def _ktriples(sys, device):
     return cache[key]
 
 
-def _box_tensor(sys, box, device):
-    """``box`` (a tensor or three numbers) as a float32 (3,) tensor on
-    ``device``; the system's box for None."""
-    return torch.as_tensor(sys.box if box is None else box,
-                           dtype=torch.float32, device=device)
+def _box_tensor(sys, box, device, dtype=torch.float32):
+    """``box`` (a tensor or three numbers) as a (3,) tensor of ``dtype``
+    on ``device``; the system's box for None (from its float64 lengths,
+    so that float64 walkers see the exact box)."""
+    return torch.as_tensor(sys.box if box is None else box, dtype=dtype,
+                           device=device)
 
 
 def ewald_tables_for_box(sys, box):
@@ -240,7 +241,7 @@ def _exception_geometry(sys, x, box):
     """Minimum-image pair vectors (B, m, 3), squared and plain distances
     (B, m) and C q_i q_j (m,) of the exception pairs of walkers ``x`` (B,
     n, 3); ``box``: as ``_box_tensor``."""
-    box = _box_tensor(sys, box, x.device).to(x.dtype)
+    box = _box_tensor(sys, box, x.device, x.dtype)
     i, j = sys.excl_idx[:, 0], sys.excl_idx[:, 1]
     d = x[:, i] - x[:, j]
     d = d - box * torch.round(d / box)

@@ -110,7 +110,7 @@ def nonbonded_energy(sys: MDSystem, x, box=None):
     n = sys.natoms
     diff = x[:, :, None, :] - x[:, None, :, :]
     if sys.method in PERIODIC and sys.box is not None:
-        wrap = _box_tensor(sys, box, x.device).to(x.dtype)
+        wrap = _box_tensor(sys, box, x.device, x.dtype)
         diff = diff - wrap * torch.round(diff / wrap)
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
     r2 = torch.sum(diff * diff, dim=-1) + eye      # avoid 0 on the diagonal

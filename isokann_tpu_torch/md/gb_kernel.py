@@ -59,15 +59,19 @@ class GBPlan:
     radius | scaled radius (zeros and 0.15 nm radii without OBC2, as the
     reference plan); ``qq_scale`` (A, A) float32, symmetric, with a zero
     diagonal.  The values are computed in float32 numpy as the reference
-    plan does."""
+    plan does; a float64 system's plan is float64 (its walkers take the
+    plain version, the reference's float64 route being its XLA forces
+    over the float64 system)."""
 
     def __init__(self, sys: MDSystem):
         A = sys.natoms
         self.A = A
         self.system = sys
+        fdt = (np.float64 if sys.charges.dtype == torch.float64
+               else np.float32)
 
         def f32(t):
-            return np.asarray(t.detach().cpu().numpy(), np.float32)
+            return np.asarray(t.detach().cpu().numpy(), fdt)
 
         q = f32(sys.charges)
         rmh = f32(sys.rmin_half)
@@ -75,12 +79,12 @@ class GBPlan:
         self.use_gb = sys.implicit == "obc2"
         has_gb = self.use_gb and sys.gb_radii.shape[0] == A
         radii = (f32(sys.gb_radii) if has_gb
-                 else np.full(A, 0.15, np.float32))
-        scales = f32(sys.gb_scales) if has_gb else np.zeros(A, np.float32)
-        orad = radii - np.float32(OFFSET)
+                 else np.full(A, 0.15, fdt))
+        scales = f32(sys.gb_scales) if has_gb else np.zeros(A, fdt)
+        orad = radii - fdt(OFFSET)
         self.tab = np.stack([q, rmh, seps, radii, orad, scales * orad]
-                            ).astype(np.float32)
-        qq = np.asarray(f32(sys.qq_scale), np.float32).copy()
+                            ).astype(fdt)
+        qq = np.asarray(f32(sys.qq_scale), fdt).copy()
         np.fill_diagonal(qq, 0.0)
         self.qq_scale = qq
         self.use_rf = sys.method != "NoCutoff"
@@ -574,10 +578,12 @@ class GBForce(LK.CudaKernel):
 gb_force = GBForce()
 
 
-def force_flat_hybrid(plan: GBPlan, xflat):
-    """Full force on flat coordinates (..., 3A): ``gb_force`` for the
+def force_flat_hybrid(plan: GBPlan, xflat, plain: bool = False):
+    """Full force on flat coordinates (..., 3A): ``gb_force`` (its plain
+    version with ``plain``, as a float64 simulation asks) for the
     nonbonded (+ OBC2) part plus the analytic bonded forces."""
     shape = xflat.shape
     xb = xflat.reshape(-1, shape[-1])
-    f = gb_force(plan, xb) + bonded_force_flat(plan.system, xb)
+    f = ((gb_force_plain if plain else gb_force)(plan, xb)
+         + bonded_force_flat(plan.system, xb))
     return f.reshape(shape)

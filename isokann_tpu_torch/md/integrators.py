@@ -17,6 +17,9 @@ Units: nm, ps, amu, kJ/mol; velocities nm/ps.  Noise is drawn from an
 explicit ``torch.Generator``: LangevinMiddle draws on the generator's
 device and moves the noise to the walkers', ABOBA and Euler-Maruyama
 draw on the walkers' device (a CUDA generator for walkers on the card).
+A ``_device.WalkerShard`` in place of the generator (one rank of a
+walker-sharded batch) gives the rank's rows the noise of the whole
+batch's draw.
 """
 
 from __future__ import annotations
@@ -28,13 +31,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .._device import randn
+
 KB = 0.00831446261815324
 
 
 def maxwell_boltzmann(gen: torch.Generator, masses3, T, shape):
-    """Velocities from the Maxwell-Boltzmann distribution; ``masses3``:
-    (3N,) per-coordinate masses on the target device."""
-    z = torch.randn(shape, generator=gen, dtype=torch.float32)
+    """Velocities from the Maxwell-Boltzmann distribution in the dtype of
+    ``masses3`` ((3N,) per-coordinate masses on the target device); drawn
+    on ``gen``'s device (a ``WalkerShard`` keeps its rows of the whole
+    batch's draw)."""
+    z = randn(gen, shape, masses3.dtype)
     return z.to(masses3.device) * torch.sqrt(KB * T / masses3)
 
 
@@ -65,8 +72,7 @@ def _langevin_middle_step(force_fn, x, v, masses3, T, gamma, dt, gen,
     x, xlo, v = drift(x, xlo, v)
     v = a * v
     if gen is not None:
-        z = torch.randn(v.shape, generator=gen, dtype=v.dtype,
-                        device=gen.device).to(v.device)
+        z = randn(gen, v.shape, v.dtype).to(v.device)
         v = v + b * torch.sqrt(KB * T / masses3) * z
     if constraints is not None:
         v = constraints.rattle(x, v)
@@ -131,8 +137,7 @@ def _normals(gen, x):
     """Standard normals of ``x``'s shape, dtype and device from ``gen``
     (zeros for ``gen=None``): the noise of every recursion below but
     LangevinMiddle."""
-    return (torch.randn(x.shape, generator=gen, dtype=x.dtype,
-                        device=x.device)
+    return (randn(gen, x.shape, x.dtype, x.device)
             if gen is not None else torch.zeros_like(x))
 
 

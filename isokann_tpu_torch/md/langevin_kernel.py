@@ -48,7 +48,8 @@ class LangevinPlan:
     Host-side numpy tables, moved to a device on first use there:
     - ``itab`` (int32): pairs i<j (2 np) | bonds (2 nb) | angles (3 na) |
       torsions (4 nd);
-    - ``ftab`` (float32): per pair qq, eps, rmin, full (np each; exclusion
+    - ``ftab`` (float32, or float64 for a float64 system, whose walkers
+      take the plain version): per pair qq, eps, rmin, full (np each; exclusion
       and 1-4 scales folded in) | bond k, r0 | angle k, theta0 | torsion
       pk, phase, n | 1/m per coordinate (3N) | sqrt(kB T/m) (3N);
     - ``dense`` (float32, (N, N, 4)): the pair table of kernel A, row j
@@ -113,13 +114,14 @@ class LangevinPlan:
                     ("pk", cpu(sys.dih_pk)), ("phase", cpu(sys.dih_phase)),
                     ("dn", cpu(sys.dih_n)), ("minv", self.minv),
                     ("vstd", self.vstd)]
-        self.ftab = np.concatenate([a for _, a in segments]).astype(
-            np.float32)
+        fdt = (np.float64 if sys.charges.dtype == torch.float64
+               else np.float32)
+        self.ftab = np.concatenate([a for _, a in segments]).astype(fdt)
 
-        dense = np.zeros((n, n, 4), np.float32)
+        dense = np.zeros((n, n, 4), fdt)
         for k, a in enumerate((self.nb_qq, self.nb_eps, self.nb_rmin,
                                self.nb_full)):
-            dense[ju, iu, k] = dense[iu, ju, k] = a.astype(np.float32)
+            dense[ju, iu, k] = dense[iu, ju, k] = a.astype(fdt)
         self.dense = dense
         self.slot_atom = np.concatenate([self.bonds.ravel(),
                                          self.angles.ravel(),
@@ -365,10 +367,24 @@ def forces_gather(plan: LangevinPlan, x):
 
 
 def langevin_middle_plain(plan: LangevinPlan, x, v, nsteps: int,
-                          gen: torch.Generator = None, noise: bool = True):
+                          gen: torch.Generator = None, noise: bool = True,
+                          walker_offset: int = 0):
     """``nsteps`` LangevinMiddle steps with ``forces_plain``; returns new
     (x, v).  Noise is drawn from ``gen`` on the host (its stream differs
-    from the kernel's Philox stream by design)."""
+    from the kernel's Philox stream by design).
+
+    A walker-sharded launch passes its rows as a ``_device.WalkerShard``
+    generator: the host draws each step's normals for the whole batch and
+    keeps these rows, so that they get what one launch of the whole batch
+    gives them, as the kernel's Philox subsequence is the global walker.
+    ``walker_offset`` (the kernel's argument) must then be the shard's
+    start; a nonzero offset without a ``WalkerShard`` raises, since the
+    whole batch is not known."""
+    from .._device import WalkerShard, randn
+    if _shard_offset(gen, walker_offset) and not isinstance(gen,
+                                                            WalkerShard):
+        raise ValueError("a nonzero walker_offset needs a WalkerShard "
+                         "generator (the whole batch) in the plain version")
     tb = plan.on(x.device)
     minv, vstd = tb["minv"], tb["vstd"]
     dt, h = plan.dt, 0.5 * plan.dt
@@ -377,7 +393,7 @@ def langevin_middle_plain(plan: LangevinPlan, x, v, nsteps: int,
         x = x + h * v
         v = plan.a * v
         if noise:
-            z = torch.randn(v.shape, generator=gen, dtype=v.dtype)
+            z = randn(gen, v.shape, v.dtype, torch.device("cpu"))
             v = v + plan.b * vstd * z.to(v.device)
         x = x + h * v
     return x, v
@@ -387,6 +403,21 @@ def langevin_middle_plain(plan: LangevinPlan, x, v, nsteps: int,
 # Wrappers: plain version on the CPU, the kernel on the card
 # ==========================================================================
 
+def _shard_offset(gen, walker_offset: int) -> int:
+    """The global index of a launch's first walker: a ``WalkerShard``'s
+    start (``walker_offset`` must be 0 or that start), else
+    ``walker_offset`` (>= 0)."""
+    from .._device import WalkerShard
+    if isinstance(gen, WalkerShard):
+        if walker_offset not in (0, gen.start):
+            raise ValueError(f"walker_offset {walker_offset} is not the "
+                             f"WalkerShard's start {gen.start}")
+        return gen.start
+    if walker_offset < 0:
+        raise ValueError(f"walker_offset {walker_offset} < 0")
+    return int(walker_offset)
+
+
 def _check(x, plan, name):
     if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != plan.dim:
         raise ValueError(f"{name}: expected float32 (B, {plan.dim}), got "
@@ -394,9 +425,13 @@ def _check(x, plan, name):
 
 
 def _check_card(x, plan, name):
-    """The kernel runs on a CUDA tensor of a system of <= 64 atoms."""
+    """The kernel runs on a CUDA tensor of a float32 system of <= 64
+    atoms."""
     if x.device.type != "cuda":
         raise NotImplementedError(f"no {name} kernel for {x.device}")
+    if plan.ftab.dtype != np.float32:
+        raise ValueError(f"the {name} kernel takes a float32 plan, not "
+                         f"{plan.ftab.dtype}: run the plain version")
     if plan.natoms > MAX_ATOMS:
         raise NotImplementedError(f"the {name} kernel takes <= {MAX_ATOMS} "
                                   f"atoms, not {plan.natoms}")
@@ -451,7 +486,7 @@ class _LangevinLib(CudaKernel):
         lib.lm_forces.restype = i
         lib.lm_langevin_middle.argtypes = (
             [p, p, i, p, p, p, p, i] + GEOMETRY_ARGTYPES
-            + [i, ctypes.c_ulonglong, i, f, f, f, p])
+            + [i, ctypes.c_ulonglong, ctypes.c_ulonglong, i, f, f, f, p])
         lib.lm_langevin_middle.restype = i
 
 
@@ -477,21 +512,30 @@ class Forces(_LangevinLib):
 
 
 class LangevinMiddle(_LangevinLib):
-    """``langevin_middle(plan, x, v, nsteps, gen, noise=True)`` -> (x, v).
+    """``langevin_middle(plan, x, v, nsteps, gen, noise=True,
+    walker_offset=0)`` -> (x, v).
 
     The kernel's Philox seed is drawn from ``gen``; the same generator
-    state gives the same bits."""
+    state gives the same bits.  Walker w of the launch draws the noise of
+    subsequence ``walker_offset`` + w, so that the ranks of a walker-
+    sharded batch (each launching its rows with the same seed) draw what
+    one launch of the whole batch draws, bit for bit.  A
+    ``_device.WalkerShard`` generator brings its start as the offset (and
+    the whole batch, which the plain version's host noise needs)."""
 
     def __call__(self, plan: LangevinPlan, x, v, nsteps: int,
-                 gen: torch.Generator, noise: bool = True):
+                 gen: torch.Generator, noise: bool = True,
+                 walker_offset: int = 0):
+        from .._device import draw_seed
         _check(x, plan, "langevin_middle")
         _check(v, plan, "langevin_middle")
         if x.device != v.device:
             raise ValueError("x and v on different devices")
         if x.device.type == "cpu":
-            return langevin_middle_plain(plan, x, v, nsteps, gen, noise)
+            return langevin_middle_plain(plan, x, v, nsteps, gen, noise,
+                                         walker_offset)
         _check_card(x, plan, "langevin_middle")
-        from .._device import draw_seed
+        walker_offset = _shard_offset(gen, walker_offset)
         seed = draw_seed(gen)
         lib = self.lib()
         x = x.contiguous().clone()
@@ -500,8 +544,8 @@ class LangevinMiddle(_LangevinLib):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.lm_langevin_middle(
             x.data_ptr(), v.data_ptr(), x.shape[0], *_table_args(plan, tb),
-            *plan.geometry_args(), int(nsteps), seed, int(bool(noise)),
-            plan.dt, plan.a, plan.b, stream)
+            *plan.geometry_args(), int(nsteps), seed, int(walker_offset),
+            int(bool(noise)), plan.dt, plan.a, plan.b, stream)
         self._raise(err, "langevin_middle")
         self.launches += 1
         return x, v

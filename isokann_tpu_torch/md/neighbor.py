@@ -284,6 +284,20 @@ class NeighborPlan:
             self._dev["geometry"] = last
         return last[1]
 
+    def box_tensor(self, device, dtype, box=None):
+        """The box lengths of ``geometry`` as a tensor of ``dtype`` on
+        ``device``: its cached float32 ``box``, or for float64 walkers the
+        float64 lengths, cached beside it (no host copy a call)."""
+        geo = self.geometry(device, box)
+        if dtype == torch.float32:
+            return geo["box"]
+        store = self.on(device) if box is None else geo
+        key = f"box_{dtype}"
+        if key not in store:
+            store[key] = torch.as_tensor(geo["box_np"], dtype=dtype,
+                                         device=device)
+        return store[key]
+
     def _cell_id_np(self, x):
         xw = np.asarray(x, np.float64).reshape(-1, 3)
         xw = xw - self.box * np.floor(xw / self.box)
@@ -416,7 +430,7 @@ def _sweep(sys: MDSystem, plan: NeighborPlan, x, want_force: bool,
     at run time.  Returns the force (natoms, 3) or the energy."""
     n = plan.natoms
     tb = plan.on(x.device)
-    box = plan.geometry(x.device, box)["box"].to(x.dtype)
+    box = plan.box_tensor(x.device, x.dtype, box)
     rc, krf, crf = _rf_consts(sys)
     xw = x - box * torch.floor(x / box)
     order, table, pos, _ = plan.sorted_frame(xw, box)
@@ -549,7 +563,7 @@ def _exception_terms(sys: MDSystem, x, want_force: bool, box=None):
     if rows.shape[0] == 0:
         return (torch.zeros_like(x) if want_force
                 else torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
-    box = _box_tensor(sys, box, x.device).to(x.dtype)
+    box = _box_tensor(sys, box, x.device, x.dtype)
     rc, krf, crf = _rf_consts(sys)
     i, j = sys.excl_idx[rows, 0], sys.excl_idx[rows, 1]
     eqq, elj = sys.excl_qq[rows], sys.excl_lj[rows]
@@ -756,6 +770,18 @@ def force_neighbor(sys: MDSystem, x, plan: NeighborPlan = None, box=None):
             + neighbor_nonbonded_force(sys, x, plan, box))
 
 
+def tensor_sweep(sys: MDSystem, plan: NeighborPlan, xb, alpha=None,
+                 beta=None, box=None):
+    """The tensor sweep's forces (B, 3N) -> (B, 3N), walker by walker
+    (``_sweep``, in the walkers' dtype): the sweep of a float64
+    simulation, whose walkers take no kernel, as the reference's XLA
+    sweep runs in the system's dtype.  ``beta`` is the system's own
+    under LJPME."""
+    n = sys.natoms
+    return torch.stack([_sweep(sys, plan, x.reshape(n, 3), True, alpha,
+                               box).reshape(-1) for x in xb])
+
+
 def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
                         sweep=None, box=None):
     """Batched flat-coordinate forces (..., 3N) -> (..., 3N): the pair
@@ -774,10 +800,10 @@ def force_flat_neighbor(sys: MDSystem, xflat, plan: NeighborPlan = None,
     x3 = xb.reshape(xb.shape[0], sys.natoms, 3)
     if box is not None:
         box = box_np(box)
-    geo = plan.geometry(xb.device, box)
+    bt = plan.box_tensor(xb.device, xb.dtype, box)
     f = (sweep(sys, plan, xb, _alpha(sys), _beta(sys), box=box
                ).reshape(x3.shape)
-         + _exception_terms(sys, x3, True, geo["box"])
-         + _ewald_terms(sys, x3, True, None if box is None else geo["box"])
+         + _exception_terms(sys, x3, True, bt)
+         + _ewald_terms(sys, x3, True, None if box is None else bt)
          + bonded_force_sparse(sys, x3))
     return f.reshape(shape)

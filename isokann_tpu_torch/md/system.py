@@ -334,7 +334,8 @@ def system_from_tables(*, masses, charges, rmin_half, eps,
 def build_system(source, method: str = "auto", cutoff: float = 1.0,
                  eps_rf: float = 78.5, implicit: Optional[str] = None,
                  dispersion_correction: bool = True, dense_pairs="auto",
-                 ewald_tol: float = 5e-4, device=None) -> MDSystem:
+                 ewald_tol: float = 5e-4, dtype=torch.float32,
+                 device=None) -> MDSystem:
     """MDSystem from a PDB path / PDBStructure / Topology, its tensors on
     ``device`` (the GPU unless the caller names another; with no GPU and no
     device this raises).
@@ -347,7 +348,9 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
     ewaldErrorTolerance).  ``dense_pairs``: True builds the dense (n, n)
     scale matrices, False only the sparse exception list (forces then run
     through the cell-list engine, which needs a periodic method), "auto"
-    switches at ``DENSE_PAIRS_MAX`` atoms."""
+    switches at ``DENSE_PAIRS_MAX`` atoms.  ``dtype``: the float
+    tensors' type (float32, or float64 for the plain routes of a float64
+    ``MDSimulation``); the tables are computed in float64 either way."""
     device = resolve_device(device)
     box = None
     if isinstance(source, str):
@@ -432,8 +435,8 @@ def build_system(source, method: str = "auto", cutoff: float = 1.0,
                            else (np.zeros(0), np.zeros(0)))
 
     def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float64),
-                               dtype=torch.float32, device=device)
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                               device=device)
 
     def idx(x, width):
         return torch.as_tensor(np.asarray(x, np.int64).reshape(-1, width),

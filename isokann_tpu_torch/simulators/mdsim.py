@@ -208,10 +208,18 @@ class MDSimulation(IsoSimulation):
     - minimize: start from the FIRE-minimized structure
     - dispersion_correction: add the long-range LJ tail (periodic systems
       with a cutoff, as OpenMM's default)
-    - dtype: float32 only (``torch.float32`` or ``np.float32``); any
-      other dtype raises ``ValueError``
-      (every route, kernel or plain, is float32)
+    - dtype: ``torch.float32`` (or ``np.float32``, the default: every
+      kernel route above) or ``torch.float64`` (``np.float64``): the
+      system, the walkers and every force, energy and integrator in
+      float64 through the plain version of each route, never a kernel
+      (the kernels are float32); ``route`` still names the route and
+      ``plain_versions`` is True.  Features and the learner stay float32,
+      as in the JAX package.  Any other dtype raises ``ValueError``.
     - device: where walkers live; default "cuda", raising without a GPU
+
+    With a process group of more than one rank
+    (``parallel.distributed.initialize``), ``propagate`` shards the
+    walkers over the ranks (``parallel.sharded_propagate``).
     """
 
     def __init__(self, pdb=None, steps: int = 100, temp: float = 310.0,
@@ -225,12 +233,8 @@ class MDSimulation(IsoSimulation):
                  neighbor_mode: str = "cells", skin: float = 0.2,
                  dispersion_correction: bool = True,
                  dtype=torch.float32, device=None):
-        if not any(dtype == f for f in (torch.float32, np.float32)):
-            raise ValueError(f"MDSimulation runs in float32 only, not "
-                             f"{dtype}: the kernels and the plain routes "
-                             f"of this package are float32")
         self._options(steps, temp, friction, step, integrator, bias,
-                      neighbor_mode, skin, device)
+                      neighbor_mode, skin, device, dtype)
         if addwater and implicit is not None:
             raise ValueError("addwater and implicit solvent are exclusive")
         if pdb is None:
@@ -258,7 +262,7 @@ class MDSimulation(IsoSimulation):
                                    cutoff=cutoff, implicit=implicit,
                                    dense_pairs=dense_pairs,
                                    dispersion_correction=dispersion_correction,
-                                   device=self.device)
+                                   dtype=self.dtype, device=self.device)
         # 4-site waters: the M rows become virtual sites
         vsi, vsp, vsw = water_msites(self.structure)
         if len(vsi):
@@ -309,7 +313,7 @@ class MDSimulation(IsoSimulation):
         built one does."""
         self = cls.__new__(cls)
         self._options(steps, temp, friction, step, integrator, bias,
-                      "cells", 0.2, device)
+                      "cells", 0.2, device, system.charges.dtype)
         if system.device.type != self.device.type:
             raise ValueError(f"the system's tensors are on {system.device}, "
                              f"the simulation's device is {self.device}: "
@@ -332,9 +336,19 @@ class MDSimulation(IsoSimulation):
         return self
 
     def _options(self, steps, temp, friction, step, integrator, bias,
-                 neighbor_mode, skin, device):
+                 neighbor_mode, skin, device, dtype):
         """The run options, checked, shared by ``__init__`` and
         ``from_system``."""
+        if any(dtype == f for f in (torch.float32, np.float32)):
+            self.dtype = torch.float32
+        elif any(dtype == f for f in (torch.float64, np.float64)):
+            self.dtype = torch.float64
+        else:
+            raise ValueError(f"MDSimulation runs in float32 (the kernel "
+                             f"routes) or float64 (their plain versions), "
+                             f"not {dtype}")
+        # float64 runs every route's plain version: the kernels are float32
+        self.plain_versions = self.dtype == torch.float64
         if neighbor_mode not in ("cells", "verlet"):
             raise ValueError(f"unknown neighbor_mode {neighbor_mode!r}")
         if integrator not in ("langevin", "brownian"):
@@ -366,7 +380,7 @@ class MDSimulation(IsoSimulation):
         self.overflows = 0     # neighbor-cell overflows seen (and regrown)
         self.vplan = None      # the Verlet lists' plan, built at first use
         self.verlet_diag = None   # the last Verlet run's diagnostics
-        self._x0 = torch.as_tensor(x0, dtype=torch.float32,
+        self._x0 = torch.as_tensor(x0, dtype=self.dtype,
                                    device=self.device).reshape(-1)
         if minimize:
             self._x0 = self.minimize(self._x0)
@@ -398,7 +412,7 @@ class MDSimulation(IsoSimulation):
     def setcoords(self, x):
         """Make ``x`` (3N,) the default start state (of ``trajectory`` and
         ``randx0``)."""
-        self._x0 = torch.as_tensor(x, dtype=torch.float32,
+        self._x0 = torch.as_tensor(x, dtype=self.dtype,
                                    device=self.device).reshape(-1)
 
     def defaultmodel(self, n=None, nout=1, gen=None, **kwargs):
@@ -415,7 +429,7 @@ class MDSimulation(IsoSimulation):
 
     def potential(self, x):
         """Potential energy [kJ/mol] at flat coords (batched)."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         return F.potential_energy_flat(self.system, x)
 
     def minimize(self, x=None, maxiter=500):
@@ -424,7 +438,7 @@ class MDSimulation(IsoSimulation):
         graph (``minimize_energy(graph=True)``)."""
         from ..md.minimize import minimize_energy
         x = self._x0 if x is None else torch.as_tensor(
-            x, dtype=torch.float32, device=self.device)
+            x, dtype=self.dtype, device=self.device)
         return place_vsites_flat(self.system, minimize_energy(
             lambda z: F.potential_energy_flat(self.system, z), x,
             maxiter=maxiter, graph=self.system.box is None))
@@ -432,15 +446,19 @@ class MDSimulation(IsoSimulation):
     # ---- propagation -------------------------------------------------------
 
     def force(self, x):
-        """Forces (B, 3N) -> (B, 3N) by the system's route."""
+        """Forces (B, 3N) -> (B, 3N) by the system's route (its kernel's
+        plain version under ``plain_versions``)."""
+        plain = self.plain_versions
         if self.route == "fused":
-            return LK.forces(self.plan, x)
+            return (LK.forces_plain if plain else LK.forces)(self.plan, x)
         if self.route == "hybrid":
-            return self._sites(lambda z: GB.force_flat_hybrid(self.gbplan, z),
-                               x)
+            return self._sites(lambda z: GB.force_flat_hybrid(
+                self.gbplan, z, plain=plain), x)
         if self.route == "neighbor":
+            # float64: the tensor sweep, the reference's XLA sweep
+            sweep = NB.tensor_sweep if plain else None
             return self._sites(lambda z: NB.force_flat_neighbor(
-                self.system, z, self.nbplan), x)
+                self.system, z, self.nbplan, sweep=sweep), x)
         if self.system.method not in EWALD:
             # analytic: about a third of autograd's launches, no backward
             return self._sites(lambda z: GF.force_flat_analytic(
@@ -457,10 +475,13 @@ class MDSimulation(IsoSimulation):
 
     def _integrate(self, x, v, nsteps, gen):
         """LangevinMiddle for (B, 3N) walkers: kernel A's whole
-        trajectories on the fused route (its plain version on the CPU),
-        else the recursion over ``self.force``."""
+        trajectories on the fused route (its plain version on the CPU and
+        under ``plain_versions``), else the recursion over
+        ``self.force``; ``gen=None`` runs the noiseless recursion."""
         if self.route == "fused":
-            return LK.langevin_middle(self.plan, x, v, nsteps, gen)
+            run = (LK.langevin_middle_plain if self.plain_versions
+                   else LK.langevin_middle)
+            return run(self.plan, x, v, nsteps, gen, noise=gen is not None)
         return I.langevin_middle(self.force, x, v, self.masses3, self.temp,
                                  self.friction, self.step, nsteps,
                                  noise_generator(gen, x.device),
@@ -503,7 +524,8 @@ class MDSimulation(IsoSimulation):
         Girsanov kernel, on the card for a bias it takes) or "recursion"
         (the plain ABOBA recursion over ``force``)."""
         return ("kernel" if torch.device(device).type != "cpu"
-                and self.kernel_takes_bias() else "recursion")
+                and not self.plain_versions and self.kernel_takes_bias()
+                else "recursion")
 
     def _aboba(self, bias, xs, p0, nsteps, gen, **kwargs):
         """The plain ABOBA recursion over ``force`` under ``bias``, with
@@ -544,11 +566,20 @@ class MDSimulation(IsoSimulation):
         times with fresh noise (``self.retries`` counts these reruns of
         the whole batch), then fall back to their start state.
 
+        Walker sharding, the reference's rule: with more than one rank
+        (``parallel.device_count() > 1``) and a padded batch that divides
+        by their number, each rank propagates its contiguous rows (with
+        the noise the unsharded run gives them) and every rank gets the
+        whole batch; the result equals the unsharded run's.  Every rank
+        passes the same ``x0`` and a generator in the same state.
+
         With a bias: ``WeightedSamples`` of the bursts (n, nk, 3N) and
         their Girsanov weights exp(logw) (n, nk), from momenta drawn from
-        the Maxwell-Boltzmann distribution; no retry."""
+        the Maxwell-Boltzmann distribution; no retry.  A biased batch is
+        not sharded: every rank computes all of it, the same bits on
+        each."""
         gen = make_generator(gen)
-        x0 = torch.as_tensor(x0, dtype=torch.float32, device=self.device)
+        x0 = torch.as_tensor(x0, dtype=self.dtype, device=self.device)
         n, d = x0.shape
         nsteps = self.steps if steps is None else int(steps)
         xs = torch.repeat_interleave(x0, nk, dim=0)
@@ -563,13 +594,25 @@ class MDSimulation(IsoSimulation):
             q = place_vsites_flat(self.system, q[:nw])
             return WeightedSamples(q.reshape(n, nk, d),
                                    torch.exp(logw[:nw]).reshape(n, nk))
-        ys = self._run(xs, nsteps, gen)[:nw]
+        mesh = self._walker_mesh(bucket)
+
+        def run():
+            if mesh is None:
+                return self._run(xs, nsteps, gen)[:nw]
+            from ..parallel import sharded_propagate
+            return sharded_propagate(
+                mesh, lambda x, g: self._run(x, nsteps, g), xs, gen)[:nw]
+
+        # under sharding every rank holds the gathered batch, so the
+        # retry decisions (and the cell-overflow check) read the same
+        # values on every rank, and the ranks' generators stay in step
+        ys = run()
         for _ in range(3):
             bad = ~torch.isfinite(ys).all(dim=-1)
             if not bool(bad.any()):
                 break
             self.retries += 1
-            retry = self._run(xs, nsteps, gen)[:nw]
+            retry = run()
             ys = torch.where(bad[:, None], retry, ys)
         bad = ~torch.isfinite(ys).all(dim=-1)
         if bool(bad.any()):
@@ -579,10 +622,20 @@ class MDSimulation(IsoSimulation):
         self._check_cell_overflow(ys)
         return place_vsites_flat(self.system, ys).reshape(n, nk, d)
 
+    def _walker_mesh(self, bucket):
+        """The mesh that shards a padded batch of ``bucket`` walkers, or
+        None: more than one rank and a bucket that divides by their
+        number (the reference's rule, not a fallback)."""
+        from ..parallel import device_count, make_mesh
+        count = device_count()
+        if count > 1 and bucket % count == 0:
+            return make_mesh()
+        return None
+
     def _start(self, x0):
         """(B, 3N) start walkers: ``x0`` or the default state."""
         x0 = self._x0 if x0 is None else torch.as_tensor(
-            x0, dtype=torch.float32, device=self.device)
+            x0, dtype=self.dtype, device=self.device)
         return x0.reshape(-1, self.dim)
 
     def _lagged_frames(self, x, v, nframes, steps, resample_velocities,

@@ -65,7 +65,8 @@ def test_port_imports_no_jax():
         "analysis.msm", "goldens", "workflows", "ops.align",
         "analysis.minimumpath", "simulators.base", "ensemble",
         "weights", "md.amberio", "md.openmm_xml", "md.importers",
-        "md.ligand", "md.pdbio", "md.vsites", "md.cmap")} <= walked, \
+        "md.ligand", "md.pdbio", "md.vsites", "md.cmap", "parallel",
+        "parallel.mesh", "parallel.distributed")} <= walked, \
         out.stdout
 
 
